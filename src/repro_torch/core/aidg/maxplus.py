@@ -1,0 +1,473 @@
+"""Max-plus evaluation of the AIDG in PyTorch.
+
+The recurrence  t_i = w_i + max(base_i, max_j (t_j + d_ji))  over the
+build-time ``CompiledAIDG`` (trace → AIDG → LevelSchedule → CompiledAIDG,
+see ``builder.compile_aidg``), for a batch of candidate weightings at once:
+every function takes ``work``/``base`` of shape (n,) or (B, n) and answers
+in the same rank.
+
+* ``longest_path_wavefront`` — a Python loop over topological *levels*
+  with vectorized predecessor gathers and a max over the predecessor axis
+  inside each level; sequential depth is the DAG's critical depth.
+* ``longest_path_scan`` — one loop step per node; the reference path.
+* ``longest_path_blocked`` — the adjacency banded into dense 128-node
+  blocks, each block solved by the max-plus Kleene closure
+  t_b = M*_b ⊗ h_b.  Every ⊗ goes through ``repro_torch.kernels.maxplus``:
+  the hand-written CUDA kernel on CUDA tensors, its plain version on CPU
+  tensors.
+
+``fixed_point_torch(engine=...)`` selects the relaxation used between
+storage-queueing folds; ``fixed_point_batch`` takes raw batched latencies.
+The storage request-slot queueing (arrival-ordered service) is
+``slot_queue_scan``.  Sorts are ``stable=True`` throughout: queue tie-breaks
+must match the reference's stable ``argsort``.
+
+The ``condensed`` engine and the smooth (τ-soft) family are not ported
+yet; asking for ``condensed`` raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ...device import resolve_device
+from ...kernels.maxplus import (maxplus_matmul, maxplus_matmul_torch,
+                                maxplus_matvec)
+from .builder import AIDG, CompiledAIDG, NEG, compile_aidg
+
+__all__ = [
+    "ENGINES",
+    "DEFAULT_ENGINE",
+    "longest_path_wavefront",
+    "longest_path_scan",
+    "longest_path_blocked",
+    "slot_queue_scan",
+    "fixed_point_torch",
+    "fixed_point_batch",
+    "maxplus_matmul_torch",
+    "maxplus_closure",
+    "Solver",
+]
+
+# the reference's engine names; "condensed" waits for the packed slice
+ENGINES = ("wavefront", "scan", "blocked", "condensed")
+DEFAULT_ENGINE = "wavefront"
+CONDENSED_TODO = ("engine 'condensed' is not ported yet (ROADMAP.md, queue "
+                  "A: PackedMatrix / condensed / soft family)")
+
+AIDGLike = Union[AIDG, CompiledAIDG]
+Tensor = torch.Tensor
+
+
+def _as_compiled(aidg: AIDGLike) -> CompiledAIDG:
+    return aidg if isinstance(aidg, CompiledAIDG) else compile_aidg(aidg)
+
+
+def _batched(x, default: np.ndarray, device: torch.device
+             ) -> Tuple[Tensor, bool]:
+    """(n,) or (B, n) input (or the AIDG default) -> ((B, n) float32 tensor
+    on ``device``, whether the input was 1-D)."""
+    v = torch.as_tensor(default if x is None else x, dtype=torch.float32,
+                        device=device)
+    return (v[None, :], True) if v.dim() == 1 else (v, False)
+
+
+# ---------------------------------------------------------------------------
+# per-node scan (reference path)
+# ---------------------------------------------------------------------------
+
+
+def _scan_impl(work: Tensor, base: Tensor, preds: Tensor,
+               extra: Tensor) -> Tensor:
+    """t_i = w_i + max(base_i, max_k t[preds_ik] + extra_ik), forward order,
+    for every batch row at once."""
+    B, n = work.shape
+    valid = preds >= 0
+    idx = preds.clamp(min=0)
+    t = torch.zeros((B, n), dtype=torch.float32, device=work.device)
+    for i in range(n):
+        vals = torch.where(valid[i], t[:, idx[i]] + extra[i], NEG)
+        m = torch.maximum(base[:, i], vals.amax(dim=1))
+        t[:, i] = m + work[:, i]
+    return t
+
+
+def longest_path_scan(aidg: AIDGLike, work=None, base=None,
+                      device=None) -> Tensor:
+    """Exact forward relaxation with one sequential step per instruction —
+    the reference path the wavefront and blocked engines are checked
+    against."""
+    dev = resolve_device(device)
+    a = _as_compiled(aidg).aidg
+    w, one = _batched(work, a.work, dev)
+    b, _ = _batched(base, a.base, dev)
+    t = _scan_impl(w, b, torch.as_tensor(a.preds, dtype=torch.long,
+                                         device=dev),
+                   torch.as_tensor(a.pred_extra, device=dev))
+    return t[0] if one else t
+
+
+# ---------------------------------------------------------------------------
+# level-scheduled wavefront
+# ---------------------------------------------------------------------------
+
+
+def _wavefront_impl(work: Tensor, base: Tensor, preds_lv: Tensor,
+                    extra_lv: Tensor, starts: Tuple[int, ...], order: Tensor,
+                    rank: Tensor, width: int) -> Tensor:
+    """One loop step per *level* over the level-major renumbering: each
+    step takes a contiguous ``width`` window of (preds, extra, work, base),
+    gathers the already-final predecessor times, reduces over the
+    predecessor axis and writes the window back.  Lanes past the level's
+    true extent compute garbage and are overwritten when their own level
+    runs."""
+    B = work.shape[0]
+    dev = work.device
+    work_lv = torch.cat([work[:, order],
+                         torch.zeros((B, width), dtype=torch.float32,
+                                     device=dev)], dim=1)
+    base_lv = torch.cat([base[:, order],
+                         torch.full((B, width), NEG, dtype=torch.float32,
+                                    device=dev)], dim=1)
+    valid = preds_lv >= 0
+    idx = preds_lv.clamp(min=0)
+    t = torch.zeros((B, work.shape[1] + width), dtype=torch.float32,
+                    device=dev)
+    for start in starts:
+        s = slice(start, start + width)
+        vals = torch.where(valid[s], t[:, idx[s]] + extra_lv[s], NEG)
+        m = torch.maximum(base_lv[:, s], vals.amax(dim=2))
+        t[:, s] = m + work_lv[:, s]
+    return t[:, rank]
+
+
+def longest_path_wavefront(aidg: AIDGLike, work=None, base=None,
+                           device=None) -> Tensor:
+    """Exact longest path in ``n_levels`` sequential steps — identical to
+    ``longest_path_scan``, the wavefront order is a parallel schedule of
+    the same relaxation."""
+    dev = resolve_device(device)
+    ca = _as_compiled(aidg)
+    a = ca.aidg
+    w, one = _batched(work, a.work, dev)
+    b, _ = _batched(base, a.base, dev)
+    solver = Solver(ca, "wavefront", dev)
+    t = solver.relax_for(w)(b)
+    return t[0] if one else t
+
+
+# ---------------------------------------------------------------------------
+# blocked max-plus closure evaluation
+# ---------------------------------------------------------------------------
+
+
+def maxplus_closure(M: Tensor, steps: int) -> Tensor:
+    """Kleene star M* = (I ⊕ M)^(2^steps) by repeated max-plus squaring, for
+    M (..., n, n).  All leading dims go to the kernel as ONE batch, so each
+    squaring is one launch.  Each squaring writes a new buffer: updating P
+    in place would read entries it has just overwritten."""
+    n = M.shape[-1]
+    eye = torch.full((n, n), NEG, dtype=torch.float32, device=M.device)
+    eye.fill_diagonal_(0.0)
+    P = torch.maximum(M, eye).reshape(-1, n, n)
+    for _ in range(steps):
+        Q = maxplus_matmul(P, P)
+        P = torch.maximum(P, Q, out=Q)
+    return P.reshape(M.shape)
+
+
+def _blocked_structure(ca: CompiledAIDG, block: int) -> Tuple[np.ndarray, ...]:
+    """Banded structure-only edge matrices, cached per block size on the
+    CompiledAIDG.
+
+    Returns (D_diag, D_sub, far_src, far_dst, far_w): per block b,
+    ``D_diag[b][i, j]`` is the extra delay of edge (local j -> local i)
+    inside the block (NEG if absent) *without* w_i (runtime work is folded
+    at eval so the blocked engine stays θ-reweightable), ``D_sub`` the same
+    for edges from the previous block, and the ``far_*`` arrays a padded
+    per-block gather list for edges reaching further back (pad: weight NEG,
+    dst ``block`` — a scratch slot)."""
+    hit = ca._block_cache.get(block)
+    if hit is not None:
+        return hit
+    a = ca.aidg
+    n = a.n
+    nb = max(1, (n + block - 1) // block)
+    Dd = np.full((nb, block, block), NEG, dtype=np.float32)
+    Ds = np.full((nb, block, block), NEG, dtype=np.float32)
+    far: Dict[int, list] = {b: [] for b in range(nb)}
+    for i in range(n):
+        bi, li = divmod(i, block)
+        for k in range(a.preds.shape[1]):
+            j = int(a.preds[i, k])
+            if j < 0:
+                break
+            d = float(a.pred_extra[i, k])
+            bj, lj = divmod(j, block)
+            if bj == bi:
+                Dd[bi, li, lj] = max(Dd[bi, li, lj], d)
+            elif bj == bi - 1:
+                Ds[bi, li, lj] = max(Ds[bi, li, lj], d)
+            else:
+                far[bi].append((j, li, d))
+    F = max(1, max(len(v) for v in far.values()))
+    far_src = np.zeros((nb, F), dtype=np.int32)
+    far_dst = np.full((nb, F), block, dtype=np.int32)
+    far_w = np.full((nb, F), NEG, dtype=np.float32)
+    for b, lst in far.items():
+        for k, (j, li, d) in enumerate(lst):
+            far_src[b, k] = j
+            far_dst[b, k] = li
+            far_w[b, k] = d
+    out = (Dd, Ds, far_src, far_dst, far_w)
+    ca._block_cache[block] = out
+    return out
+
+
+def _blocked_relax(n: int, block: int, Ds: Tensor, fs: Tensor, fd: Tensor,
+                   fw: Tensor, wb: Tensor, clo: Tensor, base: Tensor
+                   ) -> Tensor:
+    """The block recurrence for every batch row: for each block b,
+    h_b = max(base+w, far-edge gathers, M_sub ⊗ t_{b-1}), t_b = M*_bb ⊗ h_b.
+
+    ``wb`` (nb, B, block) and ``clo`` (nb, B, block, block) are stored
+    blocks-major so that each step's slice is one contiguous batch for the
+    matvec kernel."""
+    nb, B = wb.shape[0], wb.shape[1]
+    dev = base.device
+    pad = nb * block - n
+    b_p = torch.cat([base, torch.full((B, pad), NEG, dtype=torch.float32,
+                                      device=dev)], dim=1)
+    w_p = wb.permute(1, 0, 2).reshape(B, nb * block)
+    h0 = (b_p + w_p).view(B, nb, block)
+    neg_col = torch.full((B, 1), NEG, dtype=torch.float32, device=dev)
+    zero_col = torch.zeros((B, 1), dtype=torch.float32, device=dev)
+    t = torch.full((B, nb * block), NEG, dtype=torch.float32, device=dev)
+    for bi in range(nb):
+        start = max(bi - 1, 0) * block
+        prev = t[:, start:start + block].contiguous()
+        # block 0 has an all-NEG Ds[0], so its (unwritten) prev is masked
+        Ms_b = Ds[bi] + wb[bi][:, :, None]          # m_ij = d_ij + w_i
+        h = torch.maximum(h0[:, bi], maxplus_matvec(Ms_b, prev))
+        w_pad = torch.cat([wb[bi], zero_col], dim=1)
+        contrib = t[:, fs[bi]] + fw[bi] + w_pad[:, fd[bi]]   # pad: + NEG
+        h = torch.cat([h, neg_col], dim=1).scatter_reduce(
+            1, fd[bi].expand(B, -1), contrib, "amax", include_self=True)
+        tb = maxplus_matvec(clo[bi], h[:, :block].contiguous())
+        t[:, bi * block:(bi + 1) * block] = tb      # closure has identity
+    return t[:, :n]
+
+
+def longest_path_blocked(aidg: AIDGLike, block: int = 128, work=None,
+                         base=None, device=None) -> Tensor:
+    """Blocked evaluation: per-block Kleene closures (one batched kernel
+    launch per squaring), then one matvec pair per block.  On CUDA tensors
+    every ⊗ runs the hand-written kernel."""
+    dev = resolve_device(device)
+    ca = _as_compiled(aidg)
+    a = ca.aidg
+    w, one = _batched(work, a.work, dev)
+    b, _ = _batched(base, a.base, dev)
+    t = Solver(ca, "blocked", dev, block=block).relax_for(w)(b)
+    return t[0] if one else t
+
+
+# ---------------------------------------------------------------------------
+# storage request-slot queueing
+# ---------------------------------------------------------------------------
+
+
+def slot_queue_scan(arrival: Tensor, lat: Tensor, slots: int) -> Tensor:
+    """Service completion per access, arrival-ordered FIFO over ``slots``
+    request slots.  ``arrival``/``lat`` are (k,) or (B, k), in *arrival
+    order* along the last axis.
+
+    A single-slot queue is max-plus *linear*:
+    ``done_k = max(arrival_k, done_{k-1}) + lat_k`` unrolls to
+    ``done_k = S_k + max_{j<=k} (arrival_j - S_{j-1})`` with S the latency
+    prefix sum — one ``cumsum`` + one ``cummax``.  Multi-slot queues loop
+    over the accesses with a sorted slot-free vector (the min over slot
+    frees breaks max-plus linearity)."""
+    if slots == 1:
+        S = torch.cumsum(lat, dim=-1)
+        return S + torch.cummax(arrival - S + lat, dim=-1).values
+    one = arrival.dim() == 1
+    arr = arrival[None] if one else arrival
+    lt = lat[None] if one else lat
+    free = torch.zeros((arr.shape[0], slots), dtype=torch.float32,
+                       device=arr.device)
+    done = torch.empty_like(arr)
+    for k in range(arr.shape[1]):
+        d = torch.maximum(arr[:, k], free[:, 0]) + lt[:, k]
+        done[:, k] = d
+        free = torch.sort(torch.cat([d[:, None], free[:, 1:]], dim=1),
+                          dim=1).values
+    return done[0] if one else done
+
+
+# ---------------------------------------------------------------------------
+# engine dispatch + the queueing fixed point
+# ---------------------------------------------------------------------------
+
+
+class Solver:
+    """The structure of one CompiledAIDG as tensors on one device, for one
+    engine — built once and reused by every evaluation over that graph.
+
+    ``relax_for(work)`` returns the (base -> t) relaxation for a batch of
+    work vectors; ``_fixed_point_core`` runs the queueing fixed point on
+    it."""
+
+    def __init__(self, ca: CompiledAIDG, engine: str, device,
+                 block: int = 128):
+        if engine == "condensed":
+            raise NotImplementedError(CONDENSED_TODO)
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; choose from "
+                             f"{ENGINES}")
+        dev = torch.device(device)
+        a = ca.aidg
+        self.ca, self.engine, self.block = ca, engine, block
+        T = lambda x, dt=None: torch.as_tensor(np.asarray(x), dtype=dt,
+                                               device=dev)
+        if engine == "wavefront":
+            s = ca.schedule
+            self._wf = (T(ca.preds_lv, torch.long), T(ca.extra_lv),
+                        tuple(int(x) for x in s.starts),
+                        T(s.order, torch.long), T(s.rank, torch.long),
+                        s.width)
+        elif engine == "scan":
+            self._scan = (T(a.preds, torch.long), T(a.pred_extra))
+        else:
+            Dd, Ds, fs, fd, fw = _blocked_structure(ca, block)
+            self._bl = (T(Dd), T(Ds), T(fs, torch.long), T(fd, torch.long),
+                        T(fw))
+        self.fu_lat = T(a.fu_lat, torch.float32)
+        self.scatter = {st: T(ca.storage_scatter[st], torch.long)
+                        for st in ca.storage_order}
+
+    def relax_for(self, work: Tensor) -> Callable[[Tensor], Tensor]:
+        """(B, n) work -> the relaxation ``base (B, n) -> t (B, n)``.  The
+        blocked engine's closures depend only on work, so they are computed
+        here once and reused by every relaxation of a fixed point (the
+        reference recomputes them per relaxation; the result is the
+        same)."""
+        n = self.ca.aidg.n
+        if self.engine == "wavefront":
+            pl, el, st, od, rk, width = self._wf
+            return lambda b: _wavefront_impl(work, b, pl, el, st, od, rk,
+                                             width)
+        if self.engine == "scan":
+            preds, extra = self._scan
+            return lambda b: _scan_impl(work, b, preds, extra)
+        Dd, Ds, fs, fd, fw = self._bl
+        block = self.block
+        nb, B = Dd.shape[0], work.shape[0]
+        pad = nb * block - n
+        w_p = torch.cat([work, torch.zeros((B, pad), dtype=torch.float32,
+                                           device=work.device)], dim=1)
+        wb = w_p.view(B, nb, block).permute(1, 0, 2).contiguous()
+        steps = int(np.ceil(np.log2(max(2, block))))
+        # absorb runtime work into edge weights: m_ij = d_ij + w_i
+        clo = maxplus_closure(Dd[:, None] + wb[:, :, :, None], steps)
+        return lambda b: _blocked_relax(n, block, Ds, fs, fd, fw, wb, clo, b)
+
+
+def _fixed_point_core(solver: Solver, w: Tensor, b0: Tensor,
+                      storage_lat: Optional[Dict[str, Tensor]],
+                      n_iters: int) -> Tensor:
+    """(B, n) work and bases -> (B, n) completion times: relax the DAG,
+    replay each storage's accesses in estimated-arrival order through
+    ``slot_queue_scan``, fold the service needs back into the bases
+    (``scatter_reduce`` amax), iterate.  The arrival order is a stable
+    argsort and its inverse a scatter of the identity.  ``storage_lat``
+    None takes the AIDG's own latencies."""
+    ca = solver.ca
+    a = ca.aidg
+    relax = solver.relax_for(w)
+    t = relax(b0)
+    if not a.storage_nodes:
+        return t
+    B = w.shape[0]
+    for _ in range(n_iters):
+        b = b0
+        for st_name in ca.storage_order:
+            lats = (torch.as_tensor(a.storage_lat[st_name],
+                                    dtype=torch.float32,
+                                    device=w.device).expand(B, -1)
+                    if storage_lat is None else storage_lat[st_name])
+            nd = solver.scatter[st_name]
+            slots = a.storage_slots[st_name]
+            w_nd = w[:, nd]
+            arrival = t[:, nd] - w_nd
+            order = torch.argsort(arrival, dim=1, stable=True)
+            done_sorted = slot_queue_scan(arrival.gather(1, order),
+                                          lats.gather(1, order), slots)
+            inv = torch.empty_like(order).scatter_(
+                1, order, torch.arange(order.shape[1], device=w.device)
+                .expand(B, -1))
+            done = done_sorted.gather(1, inv)        # back to access order
+            need = done + solver.fu_lat[nd] - w_nd
+            b = b.scatter_reduce(1, nd.expand(B, -1), need, "amax",
+                                 include_self=True)
+        t = relax(b)
+    return t
+
+
+def fixed_point_torch(aidg: AIDGLike, n_iters: int = 3, work=None, base=None,
+                      storage_lat: Optional[Dict[str, object]] = None,
+                      engine: str = DEFAULT_ENGINE, device=None) -> Tensor:
+    """Counterpart of ``builder.longest_path_fixed_point`` on tensors:
+    ``work``/``base`` (n,) or (B, n), ``storage_lat`` {name: (k,) or
+    (B, k)}; the answer has the rank of ``work``.  ``engine`` selects the
+    DAG relaxation between queueing folds."""
+    dev = resolve_device(device)
+    ca = _as_compiled(aidg)
+    a = ca.aidg
+    w, one = _batched(work, a.work, dev)
+    b, _ = _batched(base, a.base, dev)
+    B = max(w.shape[0], b.shape[0])
+    w, b = w.expand(B, -1).contiguous(), b.expand(B, -1).contiguous()
+    sl = None
+    if storage_lat is not None:
+        sl = {name: _batched(storage_lat[name], a.storage_lat[name],
+                             dev)[0].expand(B, -1)
+              for name in a.storage_lat}
+    t = _fixed_point_core(Solver(ca, engine, dev), w, b, sl, n_iters)
+    return t[0] if one else t
+
+
+def fixed_point_batch(aidg: AIDGLike, works=None, bases=None,
+                      storage_lats: Optional[Dict[str, object]] = None,
+                      n_iters: int = 3, engine: str = DEFAULT_ENGINE,
+                      device=None) -> Tensor:
+    """Batched ``fixed_point_torch``: any of ``works`` (B, n), ``bases``
+    (B, n), ``storage_lats`` {name: (B, k)} may carry the batch axis;
+    omitted inputs broadcast from the AIDG baseline.  Returns (B, n)
+    completion times — the raw-latency counterpart of ``dse.sweep``."""
+    ca = _as_compiled(aidg)
+    a = ca.aidg
+    batched = [x for x in (works, bases) if x is not None]
+    if storage_lats is not None:
+        unknown = set(storage_lats) - set(a.storage_lat)
+        if unknown:
+            raise KeyError(f"unknown storage(s) {sorted(unknown)}; "
+                           f"AIDG has {sorted(a.storage_lat)}")
+        batched.extend(storage_lats.values())
+    if not batched:
+        raise ValueError("fixed_point_batch needs at least one batched input")
+    shapes = [tuple(np.shape(x)) for x in batched]
+    if any(len(s) != 2 for s in shapes) or len({s[0] for s in shapes}) != 1:
+        raise ValueError(f"batched inputs must be 2-D with one shared "
+                         f"leading batch dim, got shapes {shapes}")
+    dev = resolve_device(device)
+    B = shapes[0][0]
+    w = _batched(works, a.work, dev)[0].expand(B, -1).contiguous()
+    b = _batched(bases, a.base, dev)[0].expand(B, -1).contiguous()
+    sl = {name: _batched(None if storage_lats is None
+                         else storage_lats.get(name), lat, dev)[0]
+          .expand(B, -1) for name, lat in a.storage_lat.items()}
+    return _fixed_point_core(Solver(ca, engine, dev), w, b, sl, n_iters)
