@@ -8,25 +8,53 @@ Run from the repository root on a machine with a CUDA card:
 Phases — any failure exits non-zero; no phase is caught and passed over:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build ``src/repro_torch/csrc/maxplus.cu`` with ``nvcc`` (sm_90a) into
-   ``build/repro_torch/``; print the build time and the ``-Xptxas -v``
-   register and shared-memory summary;
-3. each kernel against its plain PyTorch version on the card, bit for bit
-   (``torch.equal``: max-plus is exact), at the main path's shapes (the
-   largest cell's closure squarings and the per-block matvec at 4096
-   candidates, NEG entries mixed in) and at ragged shapes; CUDA-event
-   times (after a warm-up call) of the kernel and of the plain version
-   beside the bound;
-4. the main path: ``Explorer(default_scenarios(), engine="blocked",
+2. build every kernel source (``src/repro_torch/csrc/{maxplus,
+   flash_attention,selective_scan}.cu``) with ``nvcc`` (sm_90a) into
+   ``build/repro_torch/``, one ``nvcc`` per source, all started together;
+   print the build times and the ``-Xptxas -v`` register and
+   shared-memory summaries;
+3. each max-plus kernel against its plain PyTorch version on the card,
+   bit for bit (``torch.equal``: max-plus is exact), at the main path's
+   shapes (the largest cell's closure squarings and the per-block matvec
+   at 4096 candidates, NEG entries mixed in) and at ragged shapes;
+   CUDA-event times (after a warm-up call) of the kernel and of the plain
+   version beside the bound;
+4. the Explorer path: ``Explorer(default_scenarios(), engine="blocked",
    device="cuda")``, ``explore`` over 4096 random candidates and a short
    coordinate-descent ``refine``, with the launch counters zeroed just
    before and read just after (every kernel must have launched, no plain
    version may have run); two more timed explores for the spread, the
    same explore with the wavefront engine, and one blocked explore under
    ``torch.profiler`` for the device time by kernel;
-5. the result: the θ = 1 row equals the golden cycles exactly, every
+5. its result: the θ = 1 row equals the golden cycles exactly, every
    baseline lies within its cell's ``sim_tol`` of the event simulator,
    and 256 candidates agree with the wavefront engine within rtol 1e-5;
+6. flash attention and the selective scan against their plain versions
+   on the card (TF32 off): flash at the LM path's shape (4 x 32 query
+   heads over 8 KV heads, S = 2048, D = 128) in bf16 and in f32, ragged
+   S = 1000, window 256 at S = 1024, non-causal, Dv != Dq; the scan at
+   (4, 2048, 8192, 16) and (2, 33, 100, 8); float32 and scan tolerances
+   from the reference's kernel tests, bf16 flash within
+   ``bf16_error_bound`` (derived from bf16 rounding); CUDA-event times
+   of kernel, plain version and, for flash,
+   ``scaled_dot_product_attention``, beside the bound;
+7. jamba-v0.1-52b at full width, layers 0-7 (one pattern period: 1
+   attention, 7 mamba, 4 MoE layers), float32 weights from a seed, B = 1,
+   S = 1024: ``lm.forward`` with the kernel impls against the plain impls
+   (``chunked``/``chunked_scan``) within the reference integration
+   test's atol 3e-4, rtol 1e-3;
+8. the LM serving path in bf16 (weights cast once, in place): each
+   attention and mamba block with the kernel impls against the plain
+   impls on the same bf16 input (within one bf16 unit in the last place,
+   relative, in RMS and two at the largest element), and the kernel
+   path's logits as near the float32 logits as the plain path's; scoring
+   with ``Model.logits`` at B = 4, S = 2048 through the kernels (timed 3
+   times), then generation as ``examples/serve.py`` does it --
+   ``init_cache``, ``lm.prefill(impl="flash_pallas")`` on a 512-token
+   prompt, 32 greedy ``decode_step``s -- with the counters zeroed just
+   before and read just after each (flash once and the scan 7 times per
+   forward, no plain version on the card); peak memory, and one scoring
+   forward under ``torch.profiler``;
 
 then one ``{"kernels": [...]}`` line, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``.  It needs one card; without one it
@@ -35,11 +63,14 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -55,7 +86,26 @@ CROSS_RTOL = 1e-5      # blocked vs wavefront (closure squaring reassociates)
 # two); device memory 3.35 TB/s.  Both assume the full 700 W power limit.
 FP32_INSTR_PER_S = 33.5e12
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12   # tensor cores, dense (H100 SXM data sheet)
+FP32_FLOP_PER_S = 67e12    # CUDA cores (same data sheet; an FMA counts as two)
+# special-function unit: 16 exponentials per clock per SM (H100 SXM: 132
+# SMs at 1.98 GHz)
+EXP_PER_S = 132 * 16 * 1.98e9
 BLOCK = 128            # the blocked engine's block size
+
+# -- the LM path: jamba-v0.1-52b at full width, one pattern period --------
+LM_ARCH = "jamba_v01_52b"
+LM_LAYERS = 8          # layers 0-7: attention at 3, MoE at 1, 3, 5, 7
+F32_B, F32_S = 1, 1024
+SCORE_B, SCORE_S = 4, 2048
+PROMPT, GEN = 512, 32
+FLASH_F32_TOL = (2e-4, 1e-3)  # the reference's kernel tests
+# bf16 flash: element by element within FA.bf16_error_bound (bf16 rounding)
+SCAN_TOL = (1e-4, 1e-4)
+LOGITS_TOL = (3e-4, 1e-3)  # tests/test_kernel_integration.py
+# bf16 serving: the kernel path's logits may lie at most this factor
+# further (RMS) from the float32 logits than the plain path's
+BF16_PARITY = 1.1
 
 # θ = 1 cycles of the 10 default cells, pinned in the reference's tests
 GOLDEN_THETA1_CYCLES = {
@@ -117,16 +167,16 @@ def rate(cells: int, secs) -> float:
     return cells * N_CAND / float(np.median(secs))
 
 
-def profile_explore(ex, cand) -> None:
-    """One explore under ``torch.profiler``: device time by kernel and the
-    share of the host-clock span the device was busy.  Prints "not
+def profile_call(fn, label: str) -> None:
+    """One call of ``fn`` under ``torch.profiler``: device time by kernel
+    and the share of the host-clock span the device was busy.  Prints "not
     measured" when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        ex.explore(cand)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     dev_us = {}
@@ -140,11 +190,11 @@ def profile_explore(ex, cand) -> None:
             dev_us[evt.key] = dev_us.get(evt.key, 0.0) + us
     total = sum(dev_us.values())
     if total <= 0:
-        print("profile: device time not measured (the profiler recorded "
-              "no device events)", flush=True)
+        print(f"profile ({label}): device time not measured (the profiler "
+              f"recorded no device events)", flush=True)
         return
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
-    print(f"profile (blocked explore, profiler on): span {wall_us / 1e3:.1f}"
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
+    print(f"profile ({label}, profiler on): span {wall_us / 1e3:.1f}"
           f" ms, device busy {total / 1e3:.1f} ms = "
           f"{100 * total / wall_us:.1f}% (idle {100 - 100 * total / wall_us:.1f}"
           f"%); by kernel:", flush=True)
@@ -241,7 +291,355 @@ def kernel_phase(K, path_batch: int, dev):
           f"shapes too", flush=True)
     del A, v, out, ref
     torch.cuda.empty_cache()
+    for r in rows.values():     # no PyTorch call computes a max-plus product
+        r.update(source="src/repro_torch/csrc/maxplus.cu",
+                 replaces="src/repro/kernels/maxplus.py:29", library_ms=None)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the LM path: flash attention, the selective scan, jamba at full width
+# ---------------------------------------------------------------------------
+
+
+def within(out: torch.Tensor, want: torch.Tensor, tol) -> tuple:
+    """(max |out - want|, elements outside atol + rtol |want|)."""
+    atol, rtol = tol
+    out, want = out.float(), want.float()
+    err = (out - want).abs()
+    bad = int((err > atol + rtol * want.abs()).sum())
+    return float(err.max()), bad
+
+
+def flash_bound(q, k, v, causal: bool):
+    """(least ms, "operations" | "bytes") of attention on these inputs:
+    the multiply-adds the mask leaves (rows i keep i + 1 keys when causal)
+    at the peak rate of the inputs' type, or the bytes of q, k, v and o."""
+    bh, s, dq = q.shape
+    dv = v.shape[2]
+    pairs = bh * (s * (s + 1) // 2 if causal else s * k.shape[1])
+    flops = 2.0 * pairs * (dq + dv)
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                 + bh * s * dv)
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def scan_bound(x, b):
+    """(least ms, ...) of the scan: one exponential per (step, channel,
+    state) at the special-function units' rate (the FP32 work, 6 flops per
+    state, is below it), or one read of every input and one write of y."""
+    bsz, s, dm = x.shape
+    exps = bsz * s * dm * b.shape[-1]
+    t_ops = max(exps / EXP_PER_S, 6.0 * exps / FP32_FLOP_PER_S) * 1e3
+    nbytes = (3 * x.numel() + 2 * b.numel() + b.shape[-1] * dm + dm) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def lm_kernel_phase(FA, SS, dev):
+    """Phase 6: flash attention and the scan vs their plain versions."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    a = get_config(LM_ARCH).attention
+    H, KV, D = a.n_heads, a.n_kv_heads, a.head_dim
+    rows = {}
+
+    def rand(shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    def flash_case(label, bh, bkv, s, dq, dv, dtype, causal=True, window=0):
+        q, k, v = (rand((bh, s, dq), dtype), rand((bkv, s, dq), dtype),
+                   rand((bkv, s, dv), dtype))
+        out = FA.flash_attention(q, k, v, causal=causal, window=window)
+        want = FA.flash_attention_torch(q, k, v, causal=causal,
+                                        window=window)
+        if dtype == torch.float32:
+            err, bad = within(out, want, FLASH_F32_TOL)
+            limit = f"atol/rtol {FLASH_F32_TOL}"
+        else:
+            diff = (out.float() - want.float()).abs()
+            bnd = FA.bf16_error_bound(q, k, v, causal=causal, window=window)
+            err, bad = float(diff.max()), int((diff > bnd).sum())
+            limit = (f"the bf16 bound (max |err| / bound "
+                     f"{float((diff / bnd).max()):.3f}; RMS of plain "
+                     f"{float(want.float().square().mean().sqrt()):.3e})")
+            del diff, bnd
+        check(bad == 0, f"flash {label}: {bad} elements outside {limit}, "
+                        f"max |err| {err:.3e}")
+        print(f"flash_attention {label} (BH {bh}/{bkv}, S {s}, Dq {dq}, Dv "
+              f"{dv}, {str(dtype)[6:]}, causal {causal}, window {window}): "
+              f"max |kernel - plain| {err:.3e} within {limit}", flush=True)
+        return q, k, v, err
+
+    # the path shape: B x H query heads over B x KV key/value heads
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, err = flash_case("path shape", SCORE_B * H, SCORE_B * KV,
+                                  SCORE_S, D, D, dtype)
+        ms = cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True),
+                     reps=10)
+        plain_ms = cuda_ms(lambda: FA.flash_attention_torch(q, k, v,
+                                                            causal=True),
+                           reps=2)
+        q4 = q.view(SCORE_B, H, SCORE_S, D)
+        k4 = k.view(SCORE_B, KV, SCORE_S, D)
+        v4 = v.view(SCORE_B, KV, SCORE_S, D)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True), reps=10)
+        bms, by = flash_bound(q, k, v, causal=True)
+        print(f"flash_attention path shape {str(dtype)[6:]}: kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.3f} ms, bound "
+              f"{bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound",
+              flush=True)
+        if dtype == torch.bfloat16:
+            rows["flash_attention"] = dict(
+                shape=list(q.shape) + [k.shape[0]], dtype="bfloat16", ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms, max_abs_err=err,
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:32")
+        del q, k, v, q4, k4, v4
+    for dtype in (torch.float32, torch.bfloat16):
+        flash_case("ragged", 8, 2, 1000, D, D, dtype)
+        flash_case("window 256", 8, 2, 1024, D, D, dtype, window=256)
+        flash_case("non-causal", 8, 2, 1000, D, D, dtype, causal=False)
+        flash_case("Dv != Dq", 8, 2, 1024, D, 64, dtype)
+
+    # the scan at jamba's mamba shape, then a ragged one
+    di = get_config(LM_ARCH).ssm.d_inner(get_config(LM_ARCH).d_model)
+    n = get_config(LM_ARCH).ssm.d_state
+    for (bsz, s, dm, ns) in ((SCORE_B, SCORE_S, di, n), (2, 33, 100, 8)):
+        x = rand((bsz, s, dm), scale=0.5)
+        dt = rand((bsz, s, dm), scale=0.1).abs()
+        b, c = rand((bsz, s, ns)), rand((bsz, s, ns))
+        A = -(rand((dm, ns)).abs() + 0.1)
+        d = rand((dm,))
+        out = SS.selective_scan(x, dt, b, c, A, d)
+        want = SS.selective_scan_torch(x, dt, b, c, A, d)
+        err, bad = within(out, want, SCAN_TOL)
+        print(f"selective_scan ({bsz}, {s}, {dm}, {ns}): max |kernel - "
+              f"plain| {err:.3e}, {bad} elements outside atol/rtol "
+              f"{SCAN_TOL}", flush=True)
+        check(bad == 0, f"selective_scan ({bsz}, {s}, {dm}, {ns}): {bad} "
+                        f"elements outside {SCAN_TOL}, max |err| {err:.3e}")
+        if s == SCORE_S:
+            ms = cuda_ms(lambda: SS.selective_scan(x, dt, b, c, A, d),
+                         reps=10)
+            plain_ms = cuda_ms(lambda: SS.selective_scan_torch(
+                x, dt, b, c, A, d), reps=1)
+            bms, by = scan_bound(x, b)
+            print(f"selective_scan path shape: kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), "
+                  f"{100 * bms / ms:.1f}% of bound; no PyTorch call "
+                  f"computes this scan", flush=True)
+            rows["selective_scan"] = dict(
+                shape=[bsz, s, dm, ns], dtype="float32", ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None, max_abs_err=err,
+                source="src/repro_torch/csrc/selective_scan.cu",
+                replaces="src/repro/kernels/selective_scan.py:29")
+        del x, dt, b, c, A, d, out, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lm_counts(FA, SS) -> dict:
+    return {"flash_attention": FA.LAUNCHES["flash_attention"],
+            "selective_scan": SS.LAUNCHES["selective_scan"],
+            "plain": FA.PLAIN_CALLS["flash_attention"]
+            + SS.PLAIN_CALLS["selective_scan"]}
+
+
+def check_forward_counts(counts: dict, what: str) -> None:
+    check(counts == {"flash_attention": 1, "selective_scan": LM_LAYERS - 1,
+                     "plain": 0},
+          f"{what}: launches {counts}, expected flash attention once, the "
+          f"scan {LM_LAYERS - 1} times and no plain version")
+
+
+def bf16_agreement(lm, params, plain_cfg, kern_cfg, toks, f32_logits):
+    """The bf16 serving path at full width, weights already cast.
+
+    1. Mixer by mixer -- attention and mamba blocks, the only code the two
+       impl pairs do not share -- on the same bf16 input (the plain path's
+       activations at that layer): RMS of kernel - plain within 2^-7 (one
+       bf16 unit in the last place, relative) of the plain output's RMS,
+       the largest within 2^-6 of its largest.
+    2. End to end: the kernel path's logits lie as near the float32
+       logits as the plain path's (RMS within ``BF16_PARITY``).  The two
+       paths' logits are not held to each other: the MoE router turns
+       bf16-sized differences into another expert for a few tokens, and
+       the next layers spread that."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.mamba import mamba_block
+    rms = lambda t: float(t.float().square().mean().sqrt())  # noqa: E731
+    dtype = torch.bfloat16
+    x = lm._embed(params, plain_cfg, lm._tokens(params, toks), None, dtype)
+    pos = torch.arange(x.shape[1], device=x.device)[None]
+    shares = []
+    for i, (layer, lp) in enumerate(lm._layers(params, dtype)):
+        h = L.norm(plain_cfg.norm, x, lp["ln1"])
+        outs = []
+        for cfg in (plain_cfg, kern_cfg):
+            if layer.kind == "attn":
+                outs.append(L.attention_block(
+                    lp["mix"], h, cfg.attention, positions=pos, causal=True,
+                    impl=cfg.attention_impl)[0].float())
+            else:
+                outs.append(mamba_block(lp["mix"], h, cfg.ssm,
+                                        impl=cfg.ssm_impl)[0].float())
+        plain, kern = outs
+        d = kern - plain
+        share = (rms(d) / rms(plain) / 2.0 ** -7,
+                 float(d.abs().max() / plain.abs().max()) / 2.0 ** -6)
+        shares.append(f"{i} {layer.kind} {share[0]:.3f}/{share[1]:.3f}")
+        check(max(share) <= 1.0, f"bf16 layer {i} ({layer.kind}) mixer: "
+                                 f"kernel vs plain at {share} of the limits")
+        x = lm._layer_apply(plain_cfg, layer.kind, layer.is_moe, lp, x, pos,
+                            None, plain_cfg.attention_impl, 1024)[0]
+    print(f"bf16 mixers, kernel vs plain on the same input, share of the "
+          f"limits (RMS/max): {'; '.join(shares)}", flush=True)
+
+    plain = lm.forward(params, plain_cfg, toks).float()
+    kern = lm.forward(params, kern_cfg, toks).float()
+    check(bool(torch.isfinite(kern).all()), "bf16 kernel logits finite")
+    err_p, err_k = rms(plain - f32_logits), rms(kern - f32_logits)
+    print(f"bf16 forward B={toks.shape[0]} S={toks.shape[1]}: RMS distance "
+          f"from the float32 logits, kernel impls {err_k:.4e}, plain impls "
+          f"{err_p:.4e} (ratio {err_k / err_p:.4f}, limit {BF16_PARITY}); "
+          f"plain vs float32 max {float((plain - f32_logits).abs().max()):.3e}"
+          f"; kernel vs plain max {float((kern - plain).abs().max()):.3e}, "
+          f"RMS {rms(kern - plain):.3e}", flush=True)
+    check(err_k <= BF16_PARITY * err_p,
+          f"bf16 kernel logits {err_k:.4e} from float32, more than "
+          f"{BF16_PARITY} x the plain path's {err_p:.4e}")
+
+
+def jamba_phases(FA, SS, dev) -> dict:
+    """Phases 7 and 8: the full-width float32 check, then serving in bf16.
+    Returns the LM main path's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import cast_params
+    from repro_torch.models import get_model
+    from repro_torch.models import lm
+
+    base = replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    kern = dict(attention_impl="flash_pallas", ssm_impl="pallas")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+
+    # -- 7. float32 weights: kernel impls against the plain impls ---------
+    cfg32 = replace(base, compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = get_model(cfg32).init_params(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{LM_ARCH} layers 0-{LM_LAYERS - 1} at full width: "
+          f"{n_params / 1e9:.2f} G parameters, float32, initialised from "
+          f"seed 0 on the card in {time.perf_counter() - t:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB)", flush=True)
+    toks = torch.randint(0, base.vocab_size, (F32_B, F32_S), generator=gen,
+                         device=dev)
+    FA.reset_counts()
+    SS.reset_counts()
+    t = time.perf_counter()
+    out_k = lm.forward(params, replace(cfg32, **kern), toks)
+    torch.cuda.synchronize()
+    kern_s = time.perf_counter() - t
+    check_forward_counts(lm_counts(FA, SS), "float32 kernel forward")
+    t = time.perf_counter()
+    out_p = lm.forward(params, cfg32, toks)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    check(out_k.shape == (F32_B, F32_S, base.vocab_size)
+          and bool(torch.isfinite(out_k).all()), "f32 logits finite, shaped")
+    err, bad = within(out_k, out_p, LOGITS_TOL)
+    print(f"float32 forward B={F32_B} S={F32_S}: kernel impls {kern_s:.3f} "
+          f"s, plain impls {plain_s:.3f} s; logits max |kernel - plain| "
+          f"{err:.3e} (max |logit| {float(out_p.abs().max()):.3e}), {bad} "
+          f"outside atol/rtol {LOGITS_TOL}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(bad == 0, f"float32 jamba logits: {bad} outside {LOGITS_TOL}, max "
+                    f"|err| {err:.3e}")
+    del out_k
+
+    # -- 8. bf16: agreement, scoring, then generation ------------------------
+    t = time.perf_counter()
+    cast_params(params, torch.bfloat16)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"cast to bf16 in place in {time.perf_counter() - t:.1f} s: "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB of weights",
+          flush=True)
+    cfg = replace(base, **kern)
+    bf16_agreement(lm, params, base, cfg, toks, out_p)
+    del out_p
+    model = get_model(cfg)
+    batch = {"tokens": torch.randint(0, base.vocab_size, (SCORE_B, SCORE_S),
+                                     generator=gen, device=dev)}
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_counts()
+    SS.reset_counts()
+    t = time.perf_counter()
+    logits = model.logits(params, batch)
+    torch.cuda.synchronize()
+    score_s = [time.perf_counter() - t]
+    score_counts = lm_counts(FA, SS)
+    check_forward_counts(score_counts, "scoring forward")
+    check(logits.shape == (SCORE_B, SCORE_S, base.vocab_size)
+          and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()),
+          "scoring logits finite, (B, S, V), bf16")
+    del logits
+    score_s += [timed(lambda: model.logits(params, batch)) for _ in range(2)]
+    print(f"scoring: Model.logits at B={SCORE_B} S={SCORE_S}, 3 runs "
+          f"{fmt(score_s)} s -> median "
+          f"{SCORE_B * SCORE_S / float(np.median(score_s)):.0f} tokens/s; "
+          f"launches {score_counts}", flush=True)
+
+    prompt = batch["tokens"][:, :PROMPT]
+    FA.reset_counts()
+    SS.reset_counts()
+    t = time.perf_counter()
+    cache = model.init_cache(SCORE_B, PROMPT + GEN, device=dev)
+    lg, cache = lm.prefill(params, cfg, prompt, cache, impl="flash_pallas")
+    tok = lg[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    gen_toks = [tok]
+    t = time.perf_counter()
+    for _ in range(GEN):
+        lg, cache = model.decode_step(params, tok, cache)
+        tok = lg[:, -1].argmax(-1)[:, None]
+        gen_toks.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    gen_counts = lm_counts(FA, SS)
+    check(gen_counts == {"flash_attention": 1, "selective_scan": 0,
+                         "plain": 0},
+          f"generation: launches {gen_counts}, expected flash attention "
+          f"once (prefill; the scan runs chunked under a cache, decode has "
+          f"no kernel) and no plain version")
+    out = torch.cat(gen_toks, dim=1)
+    check(out.shape == (SCORE_B, GEN + 1) and bool(torch.isfinite(lg).all())
+          and int(out.min()) >= 0 and int(out.max()) < base.vocab_size,
+          "generated tokens in range, logits finite")
+    print(f"generation: B={SCORE_B}, prefill {PROMPT} tokens "
+          f"(impl=flash_pallas) {1e3 * prefill_s:.1f} ms, {GEN} decode steps "
+          f"{1e3 * decode_s / GEN:.2f} ms/token; launches {gen_counts}; "
+          f"first row {out[0, :8].tolist()}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    profile_call(lambda: model.logits(params, batch),
+                 f"jamba scoring forward B={SCORE_B} S={SCORE_S}")
+    return {k: score_counts[k] + gen_counts[k]
+            for k in ("flash_attention", "selective_scan")}
 
 
 def main() -> int:
@@ -253,19 +651,36 @@ def main() -> int:
                                                 compile_scenario,
                                                 default_scenarios,
                                                 random_candidates)
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import maxplus as K
+    from repro_torch.kernels import selective_scan as SS
 
+    # every float32 comparison below runs in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}", flush=True)
 
-    # -- 2. build ---------------------------------------------------------
+    # -- 2. build, one nvcc per source, all started together ---------------
+    builders = {"maxplus": K.build, "flash_attention": FA.build,
+                "selective_scan": SS.build}
+
+    def timed_build(fn):
+        t0 = time.perf_counter()
+        path = fn()
+        return path, time.perf_counter() - t0
+
     t = time.perf_counter()
-    lib = K.build()
-    build_s = time.perf_counter() - t
-    print(f"built {lib.name} in {build_s:.1f} s; nvcc -Xptxas -v said:",
-          flush=True)
-    print(lib.with_suffix(".log").read_text().strip(), flush=True)
+    with ThreadPoolExecutor(len(builders)) as pool:
+        futures = {name: pool.submit(timed_build, fn)
+                   for name, fn in builders.items()}
+        built = {name: f.result() for name, f in futures.items()}
+    print(f"built {len(built)} kernel libraries in parallel in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    for name, (lib, secs) in built.items():
+        print(f"{lib.name} ({secs:.1f} s); nvcc -Xptxas -v said:", flush=True)
+        print(lib.with_suffix(".log").read_text().strip(), flush=True)
 
     # -- 3. kernels vs plain versions --------------------------------------
     scen = default_scenarios()
@@ -317,7 +732,7 @@ def main() -> int:
     print(f"wavefront explore: {S} cells x {N_CAND} candidates, 3 runs "
           f"{fmt(wf_s)} s -> median {rate(S, wf_s):.0f} cell-candidates/s "
           f"(Explorer build {wf_init_s:.3f} s)", flush=True)
-    profile_explore(ex, cand)
+    profile_call(lambda: ex.explore(cand), "blocked explore")
 
     # -- 5. hold the result --------------------------------------------------
     golden = list(GOLDEN_THETA1_CYCLES.values())
@@ -345,14 +760,20 @@ def main() -> int:
           f"{cross:.3e} on {N_CROSS} candidates; on all {N_CAND}, by cell: "
           f"{per_cell}", flush=True)
 
-    replaces = "src/repro/kernels/maxplus.py:29"
-    source = "src/repro_torch/csrc/maxplus.cu"
-    kernels = [dict(name=name, route="cuda", source=source,
-                    replaces=replaces, launches=launches[name],
+    del ex, ex_wf, res, res_wf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 6.-8. the LM path ---------------------------------------------------
+    rows.update(lm_kernel_phase(FA, SS, dev))
+    launches.update(jamba_phases(FA, SS, dev))
+
+    kernels = [dict(name=name, route="cuda", source=r["source"],
+                    replaces=r["replaces"], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=None,
-                    shape=r["shape"], equal=True)
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    shape=r["shape"])
                for name, r in rows.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

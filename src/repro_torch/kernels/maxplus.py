@@ -19,22 +19,19 @@ fallback; only CPU tensors take the plain version.  ``LAUNCHES`` and
 
 The kernel is compiled with ``nvcc`` at first use into
 ``build/repro_torch/`` at the repository root, named by a hash of the
-source, and loaded with ``ctypes`` (plain C interface, no PyTorch headers).
+source, and loaded with ``ctypes`` (plain C interface, no PyTorch headers;
+see ``_build``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
+
+from . import _build
 
 __all__ = ["NEG", "K_STEP", "LAUNCHES", "PLAIN_CALLS", "reset_counts",
            "maxplus_matmul", "maxplus_matvec", "maxplus_matmul_torch",
@@ -47,13 +44,7 @@ K_STEP = 8   # k-slab depth of the plain version (as the TPU kernel's K_STEP)
 LAUNCHES: Dict[str, int] = {"maxplus_matmul": 0, "maxplus_matvec": 0}
 PLAIN_CALLS: Dict[str, int] = {"maxplus_matmul": 0, "maxplus_matvec": 0}
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "maxplus.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
+SOURCE = _build.CSRC / "maxplus.cu"
 
 
 def reset_counts() -> None:
@@ -93,58 +84,22 @@ def maxplus_matvec_torch(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the max-plus kernel is built from "
-                       "csrc/maxplus.cu at first use and needs the CUDA "
-                       "toolkit")
-
-
 def build() -> Path:
-    """Compile ``csrc/maxplus.cu`` into ``build/repro_torch/`` (skipped when
-    a library for this exact source already exists) and return its path.
-    What nvcc printed (the ``-Xptxas -v`` register and shared-memory
-    summary) is kept beside it, with the suffix ``.log``.  Both files are
-    written under temporary names and renamed into place, the library
-    last, so concurrent builders never load a half-written file."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"maxplus_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    log = (proc.stdout + proc.stderr).strip()
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
-    tmp_log = tmp + ".log"
-    Path(tmp_log).write_text(log + "\n")
-    os.replace(tmp_log, out.with_suffix(".log"))
-    os.replace(tmp, out)
-    return out
+    """Compile ``csrc/maxplus.cu`` into ``build/repro_torch/`` (see
+    ``_build.build``) and return the library's path."""
+    return _build.build(SOURCE)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.maxplus_matmul_f32.argtypes = [p, p, p, ll, i, i, i, p]
+    lib.maxplus_matmul_f32.restype = i
+    lib.maxplus_matvec_f32.argtypes = [p, p, p, ll, i, i, p]
+    lib.maxplus_matvec_f32.restype = i
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.maxplus_matmul_f32.argtypes = [p, p, p, ll, i, i, i, p]
-            lib.maxplus_matmul_f32.restype = i
-            lib.maxplus_matvec_f32.argtypes = [p, p, p, ll, i, i, p]
-            lib.maxplus_matvec_f32.restype = i
-            _lib = lib
-    return _lib
+    return _build.load(SOURCE, _bind)
 
 
 # ---------------------------------------------------------------------------
@@ -162,12 +117,6 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
             raise TypeError(f"{name}: expects float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expects contiguous tensors")
-
-
-def _launch_check(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
 
 
 def maxplus_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -196,7 +145,7 @@ def maxplus_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.maxplus_matmul_f32(A.data_ptr(), B.data_ptr(), C.data_ptr(),
                                      b, M, K, N, stream)
-    _launch_check("maxplus_matmul", err)
+    _build.launch_check("maxplus_matmul", err)
     LAUNCHES["maxplus_matmul"] += 1
     return C
 
@@ -226,6 +175,6 @@ def maxplus_matvec(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.maxplus_matvec_f32(A.data_ptr(), v.data_ptr(),
                                      out.data_ptr(), b, M, K, stream)
-    _launch_check("maxplus_matvec", err)
+    _build.launch_check("maxplus_matvec", err)
     LAUNCHES["maxplus_matvec"] += 1
     return out

@@ -1,0 +1,376 @@
+"""Shared model layers in PyTorch: norms, RoPE, the attention family, MLPs.
+
+The port of ``repro.models.layers``.  Functions take their parameters as a
+mapping of tensors with the reference's leaf names and are
+shape-polymorphic over batch and sequence, as in the reference; the
+``nn.Module``s of ``models.lm`` hold those tensors and call them.  Dtypes
+follow the reference: norms take their statistics in float32 and apply the
+normaliser in ``x``'s dtype; every ``preferred_element_type=float32``
+einsum upcasts its operands first, so bf16 inputs give the same numbers.
+
+``impl="flash_pallas"`` (and ``"flash_pallas_interpret"``, the same thing
+here) sends attention through ``kernels.flash_attention``: the
+hand-written kernel for CUDA tensors, its plain version for CPU tensors.
+
+MLA (``init_mla``/``mla_block``) is not ported yet (ROADMAP.md, A10).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .config import AttentionConfig
+from ..kernels import flash_attention as _fa
+
+__all__ = [
+    "rmsnorm", "layernorm", "nonparametric_ln", "norm", "init_norm",
+    "rope_frequencies", "apply_rope",
+    "chunked_attention", "dense_attention",
+    "attention_block", "mla_block", "mlp_block",
+    "init_attention", "init_mla", "init_mlp", "normal",
+]
+
+NEG = -1e18
+Params = Mapping[str, object]
+
+
+def normal(gen: Optional[torch.Generator], shape, dtype: torch.dtype,
+           scale: float, device) -> torch.Tensor:
+    """Standard-normal weights times ``scale`` (the reference's init
+    scales; not its PRNG stream).  ``gen=None`` on the ``meta`` device
+    gives the shape and dtype only."""
+    t = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return t.mul_(scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def _sq_mean(x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    return (xf * xf).sum(dim=-1) / x.shape[-1]
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    inv = torch.rsqrt(_sq_mean(x) + eps)[..., None].to(x.dtype)
+    return x * inv * scale.to(x.dtype)
+
+
+def nonparametric_ln(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm: no scale, no bias."""
+    mu = x.float().mean(dim=-1, keepdim=True)
+    xc = x - mu.to(x.dtype)
+    inv = torch.rsqrt(_sq_mean(xc) + eps)[..., None].to(x.dtype)
+    return xc * inv
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    return nonparametric_ln(x, eps) * scale.to(x.dtype) + bias.to(x.dtype)
+
+
+def norm(kind: str, x: torch.Tensor, params: Optional[Params] = None
+         ) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"])
+    if kind == "layernorm":
+        return layernorm(x, params["scale"], params["bias"])
+    if kind == "nonparametric_ln":
+        return nonparametric_ln(x)
+    raise ValueError(kind)
+
+
+def init_norm(kind: str, d: int, dtype: torch.dtype, device) -> Dict:
+    if kind == "rmsnorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device),
+                "bias": torch.zeros((d,), dtype=dtype, device=device)}
+    return {}  # non-parametric
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None
+                     ) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    ang = positions[..., None].float() * freqs               # (..., S, D/2)
+    cos = torch.cos(ang)[..., None, :]                       # (..., S, 1, D/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention cores
+# ---------------------------------------------------------------------------
+
+
+def _expand_kv(k: torch.Tensor, h: int) -> torch.Tensor:
+    """(B, T, KV, D) -> (B, T, H, D) by group expansion (jnp.repeat)."""
+    kv = k.shape[2]
+    if kv == h:
+        return k
+    return k.repeat_interleave(h // kv, dim=2)
+
+
+def _scaled(q: torch.Tensor, d: int) -> torch.Tensor:
+    """``q / sqrt(d)`` with the divisor rounded to q's dtype first, as the
+    reference's ``np.sqrt(d).astype(q.dtype)``."""
+    return q / torch.tensor(np.sqrt(d), dtype=q.dtype, device=q.device)
+
+
+def _mask(s: int, t: int, causal: bool, window: int, q_offset,
+          device) -> torch.Tensor:
+    qpos = q_offset + torch.arange(s, device=device)[:, None]
+    kpos = torch.arange(t, device=device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Reference attention.  q: (B, S, H, Dq), k/v: (B, T, KV, Dq/Dv);
+    ``q_offset`` is the absolute position of q[0]."""
+    b, s, h, dq = q.shape
+    t = k.shape[1]
+    kf = _expand_kv(k, h).float()
+    vf = _expand_kv(v, h).float()
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), kf) / np.sqrt(dq)
+    mask = _mask(s, t, causal, window, q_offset, q.device)
+    scores = scores.masked_fill_(~mask, NEG)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", p, vf)
+    return out.to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, window: int = 0, chunk: int = 1024,
+                      q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax attention over KV chunks in plain PyTorch; never
+    holds an (S, T) score matrix.  Falls back to ``dense_attention`` when
+    T fits one chunk, as the reference does."""
+    b, s, h, dq = q.shape
+    t = k.shape[1]
+    if t <= chunk:
+        return dense_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+    assert t % chunk == 0, (t, chunk)
+    dv = v.shape[-1]
+    kf = _expand_kv(k, h)
+    vf = _expand_kv(v, h)
+    qf = _scaled(q, dq).float()
+    qpos = q_offset + torch.arange(s, device=q.device)
+    m = torch.full((b, h, s), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, s, dv), dtype=torch.float32, device=q.device)
+    for ci in range(t // chunk):
+        kb = kf[:, ci * chunk:(ci + 1) * chunk]          # (B, C, H, Dq)
+        vb = vf[:, ci * chunk:(ci + 1) * chunk]
+        scores = torch.einsum("bshd,bchd->bhsc", qf, kb.float())
+        kpos = ci * chunk + torch.arange(chunk, device=q.device)
+        mask = torch.ones((s, chunk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= qpos[:, None] >= kpos[None, :]
+        if window > 0:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        scores = scores.masked_fill_(~mask, NEG)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        p = torch.exp(scores - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhsc,bchd->bhsd", p.to(vb.dtype).float(), vb.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.movedim(1, 2).to(q.dtype)
+
+
+def _attend(q, k, v, *, causal, window, impl, chunk, q_offset=0):
+    if impl == "dense":
+        return dense_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+    if impl in ("flash_pallas", "flash_pallas_interpret"):
+        # the kernel path: (B, S, H, D) -> (B*H, S, D); the kernel reads KV
+        # head i // (H/KV) itself, so k and v stay at KV heads
+        b, s, h, dq = q.shape
+        t, kv, dv = k.shape[1], k.shape[2], v.shape[-1]
+        qh = q.movedim(2, 1).reshape(b * h, s, dq).contiguous()
+        kh = k.movedim(2, 1).reshape(b * kv, t, dq).contiguous()
+        vh = v.movedim(2, 1).reshape(b * kv, t, dv).contiguous()
+        out = _fa.flash_attention(qh, kh, vh, causal=causal, window=window)
+        return out.reshape(b, h, s, dv).movedim(1, 2)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             chunk=chunk, q_offset=q_offset)
+
+
+# ---------------------------------------------------------------------------
+# GQA / SWA attention block
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen, cfg: AttentionConfig, d_model: int,
+                   dtype: torch.dtype, device) -> Dict:
+    a = cfg
+    s = d_model ** -0.5
+    return {
+        "wq": normal(gen, (d_model, a.n_heads * a.head_dim), dtype, s, device),
+        "wk": normal(gen, (d_model, a.n_kv_heads * a.head_dim), dtype, s,
+                     device),
+        "wv": normal(gen, (d_model, a.n_kv_heads * a.head_dim), dtype, s,
+                     device),
+        "wo": normal(gen, (a.n_heads * a.head_dim, d_model), dtype, s, device),
+    }
+
+
+def attention_block(params: Params, x: torch.Tensor, cfg: AttentionConfig, *,
+                    positions: torch.Tensor, causal: bool = True,
+                    cache: Optional[Dict] = None, impl: str = "chunked",
+                    chunk: int = 1024) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """GQA (optionally sliding-window) attention.
+
+    ``cache``: {"k": (B, T, KV, D), "v": ..., "kpos": (T,) int32, "pos":
+    int} for prefill and decode (x is then (B, 1, d)).  Returns (out,
+    new_cache).  The cache's tensors are updated IN PLACE where the
+    reference writes a slice (decode, and a prefill shorter than the
+    cache): use the returned cache, not the one passed in."""
+    a = cfg
+    b, s, _ = x.shape
+    q = (x @ params["wq"]).reshape(b, s, a.n_heads, a.head_dim)
+    k = (x @ params["wk"]).reshape(b, s, a.n_kv_heads, a.head_dim)
+    v = (x @ params["wv"]).reshape(b, s, a.n_kv_heads, a.head_dim)
+    q = apply_rope(q, positions, a.rope_theta)
+    k = apply_rope(k, positions, a.rope_theta)
+
+    new_cache = None
+    if cache is not None:
+        t = cache["k"].shape[1]
+        pos = int(cache["pos"])
+        kd, vd = cache["k"].dtype, cache["v"].dtype
+        ring = a.window > 0 and t < 1 << 30   # SWA caches are ring buffers
+        if s == 1:
+            idx = pos % t if ring else pos
+            ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
+            ck[:, idx] = k[:, 0].to(kd)
+            cv[:, idx] = v[:, 0].to(vd)
+            kpos[idx] = pos
+        elif s >= t:
+            # prefill longer than the ring: keep the last t positions at
+            # their ring slots (slot of position p is p % t)
+            shift = s % t
+            ck = torch.roll(k[:, -t:].to(kd), shift, dims=1)
+            cv = torch.roll(v[:, -t:].to(vd), shift, dims=1)
+            kpos = torch.roll(torch.arange(s - t, s, dtype=torch.int32,
+                                           device=x.device), shift)
+        else:
+            ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
+            ck[:, :s] = k.to(kd)
+            cv[:, :s] = v.to(vd)
+            kpos[:s] = torch.arange(s, dtype=torch.int32, device=x.device)
+        new_cache = {"k": ck, "v": cv, "kpos": kpos, "pos": pos + s}
+        if s == 1:
+            out = _decode_attention(q, ck, cv, kpos, pos, window=a.window)
+        else:  # prefill: attention over the fresh keys directly
+            out = _attend(q, k, v, causal=causal, window=a.window, impl=impl,
+                          chunk=chunk)
+    else:
+        out = _attend(q, k, v, causal=causal, window=a.window, impl=impl,
+                      chunk=chunk)
+    out = out.reshape(b, s, a.n_heads * a.head_dim) @ params["wo"]
+    return out, new_cache
+
+
+def _decode_attention(q, ck, cv, kpos, cur_pos, window: int = 0):
+    """Single-step decode over a (B, T, KV, D) cache whose slot j holds
+    absolute position kpos[j] (-1 = never written); masks invalid and
+    out-of-window slots.  KV heads stay compressed; the group expansion
+    happens on the q side."""
+    b, s, h, d = q.shape
+    t, kv = ck.shape[1], ck.shape[2]
+    g = h // kv
+    qg = _scaled(q, d).reshape(b, s, kv, g, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), ck.float())
+    mask = (kpos >= 0) & (kpos <= cur_pos)
+    if window > 0:
+        mask &= kpos > cur_pos - window
+    scores = scores.masked_fill_(~mask, NEG)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p.to(cv.dtype).float(),
+                       cv.float())
+    return out.reshape(b, s, h, cv.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (not ported yet)
+# ---------------------------------------------------------------------------
+
+
+MLA_NOT_PORTED = ("multi-head latent attention (MLA) is not ported to "
+                  "repro_torch yet; see ROADMAP.md, queue A, item 10")
+
+
+def _mla_not_ported(*_, **__):
+    raise NotImplementedError(MLA_NOT_PORTED)
+
+
+init_mla = _mla_not_ported
+mla_block = _mla_not_ported
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen, d_model: int, d_ff: int, dtype: torch.dtype, device,
+             gated: bool = True) -> Dict:
+    s = d_model ** -0.5
+    p = {"w_up": normal(gen, (d_model, d_ff), dtype, s, device),
+         "w_down": normal(gen, (d_ff, d_model), dtype, d_ff ** -0.5, device)}
+    if gated:
+        p["w_gate"] = normal(gen, (d_model, d_ff), dtype, s, device)
+    return p
+
+
+def activation_fn(activation: str):
+    """``jax.nn.silu`` or ``jax.nn.gelu`` (whose default is the tanh
+    approximation)."""
+    if activation == "silu":
+        return F.silu
+    return lambda x: F.gelu(x, approximate="tanh")
+
+
+def mlp_block(params: Params, x: torch.Tensor,
+              activation: str = "silu") -> torch.Tensor:
+    act = activation_fn(activation)
+    up = x @ params["w_up"]
+    if "w_gate" in params:
+        up = act(x @ params["w_gate"]) * up
+    else:
+        up = act(up)
+    return up @ params["w_down"]

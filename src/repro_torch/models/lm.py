@@ -1,0 +1,406 @@
+"""Decoder-only LM over the config schema, in PyTorch: the port of
+``repro.models.lm`` for the GQA, Mamba and MoE families.
+
+The parameters live in ``nn.Module``s whose parameter names are the
+reference's leaf names: ``LM`` holds ``embed``, ``layers`` (one ``Block``
+per layer: ``ln1``, ``mix`` = ``Attention`` or ``Mamba``, ``ln2``, ``ffn``
+= ``MLP`` or ``MoE``), ``final_norm`` and, untied, ``unembed``.  The
+reference stacks layers by pattern position; layer ``r * P + pos`` here
+holds the reference's ``blocks[pos][...][r]`` (``P = pattern_period``).
+The functions below take the ``LM`` where the reference takes its
+parameter pytree, and run under ``torch.inference_mode``.
+
+Entry points:
+  init_params(cfg, generator)          random parameters at the reference's
+                                       init scales, on the generator's device
+  forward / forward_with_aux           logits of a full pass (scoring)
+  init_cache / prefill / decode_step   serving path with KV/SSM caches
+
+Weights are cast to the compute dtype on every forward, keeping the
+numerics-critical leaves (``_F32_LEAVES``) in float32, as ``cast_tree``
+does in the reference; ``convert.cast_params`` does that cast once, in
+place, so a forward then copies nothing.  Caches are updated in place
+(see ``layers.attention_block``).  Not ported: MLA attention and the
+encoder-decoder family (ROADMAP.md); the reference's remat, optimisation
+barriers and sharding hints have no effect on a forward pass.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+import torch
+from torch import nn
+
+from .config import ModelConfig
+from . import layers as L
+from .layers import init_norm, norm
+from .mamba import init_mamba, init_mamba_cache, mamba_block
+from .moe import init_moe, moe_block
+
+__all__ = ["pattern_period", "cast_tree", "init_params", "param_specs",
+           "forward", "forward_with_aux", "init_cache", "prefill",
+           "decode_step", "LM", "Block", "Attention", "Mamba", "MLP", "MoE",
+           "Norm", "keeps_f32"]
+
+# parameters kept in float32 regardless of compute dtype (numerics-critical)
+_F32_LEAVES = ("A_log", "D", "dt_bias", "router")
+
+
+def _dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def pattern_period(cfg: ModelConfig) -> int:
+    p = cfg.attn_period
+    if cfg.moe is not None:
+        p = math.lcm(p, cfg.moe.every)
+    assert cfg.n_layers % p == 0, (cfg.n_layers, p)
+    return p
+
+
+def keeps_f32(name: str) -> bool:
+    """Whether the leaf ``name`` stays float32 under ``cast_tree``."""
+    return any(k in name for k in _F32_LEAVES)
+
+
+def cast_tree(tree: Mapping, dtype: torch.dtype) -> Dict:
+    """Cast weight leaves to the compute dtype, keeping numerics-critical
+    leaves (SSM decay, router) in float32.  A leaf already in ``dtype`` is
+    returned as it is (no copy)."""
+    out: Dict[str, Any] = {}
+    for name, a in tree.items():
+        if isinstance(a, Mapping):
+            out[name] = cast_tree(a, dtype)
+        elif keeps_f32(name) or a.dtype not in (torch.float32,
+                                                torch.bfloat16):
+            out[name] = a
+        else:
+            out[name] = a.to(dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+
+class Params(nn.Module):
+    """A module holding a nested dict of tensors as (frozen) parameters and
+    sub-modules, named by the dict's keys."""
+
+    def __init__(self, tree: Mapping):
+        super().__init__()
+        for name, val in tree.items():
+            if isinstance(val, Mapping):
+                self.add_module(name, Params(val))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(val, requires_grad=False))
+
+    def tree(self) -> Dict:
+        """The parameters as the reference's nested dict of leaves."""
+        out: Dict[str, Any] = dict(self.named_parameters(recurse=False))
+        for name, child in self.named_children():
+            out[name] = child.tree()
+        return out
+
+
+class Norm(Params):
+    """``scale`` (rmsnorm), ``scale`` and ``bias`` (layernorm), or nothing
+    (non-parametric LayerNorm)."""
+
+
+class Attention(Params):
+    """GQA attention: ``wq``, ``wk``, ``wv``, ``wo``."""
+
+
+class Mamba(Params):
+    """Mamba-1 mixer: ``in_proj``, ``conv_w``, ``conv_b``, ``x_proj``,
+    ``dt_proj``, ``dt_bias``, ``A_log``, ``D``, ``out_proj``."""
+
+
+class MLP(Params):
+    """Gated (``w_gate``, ``w_up``, ``w_down``) or plain FFN."""
+
+
+class MoE(Params):
+    """``router``, stacked experts ``w_gate``/``w_up``/``w_down``, and an
+    optional ``shared`` MLP."""
+
+
+class Block(nn.Module):
+    """One layer: ``ln1``, ``mix``, and (unless pure-mamba) ``ln2``,
+    ``ffn``; ``kind`` and ``is_moe`` say which."""
+
+    def __init__(self, kind: str, is_moe: bool, tree: Mapping):
+        super().__init__()
+        self.kind, self.is_moe = kind, is_moe
+        self.ln1 = Norm(tree["ln1"])
+        self.mix = (Attention if kind == "attn" else Mamba)(tree["mix"])
+        if "ffn" in tree:
+            self.ln2 = Norm(tree["ln2"])
+            self.ffn = (MoE if is_moe else MLP)(tree["ffn"])
+
+    def tree(self) -> Dict:
+        return {name: child.tree() for name, child in self.named_children()}
+
+
+class LM(nn.Module):
+    """The decoder-only LM; ``tree`` is the port's layout of the
+    reference's parameters: {"embed", "layers": [layer dicts], "final_norm",
+    "unembed"?, "patch_proj"?}."""
+
+    def __init__(self, cfg: ModelConfig, tree: Mapping):
+        super().__init__()
+        self.cfg = cfg
+        kinds, moes = cfg.layer_kinds(), cfg.moe_layers()
+        if len(tree["layers"]) != cfg.n_layers:
+            raise ValueError(f"{len(tree['layers'])} layers for a "
+                             f"{cfg.n_layers}-layer config")
+        self.layers = nn.ModuleList(
+            Block(kinds[i], moes[i], lt)
+            for i, lt in enumerate(tree["layers"]))
+        self.final_norm = Norm(tree["final_norm"])
+        for name in ("embed", "unembed", "patch_proj"):
+            if name in tree:
+                self.register_parameter(
+                    name, nn.Parameter(tree[name], requires_grad=False))
+        if "unembed" not in tree:
+            self.unembed = None
+
+    def forward(self, tokens, patches=None, impl=None, chunk: int = 1024):
+        return forward(self, self.cfg, tokens, patches, impl, chunk)
+
+
+# ---------------------------------------------------------------------------
+# parameter construction
+# ---------------------------------------------------------------------------
+
+
+def _init_layer(gen, cfg: ModelConfig, kind: str, is_moe: bool,
+                dtype: torch.dtype, device) -> Dict:
+    p: Dict[str, Any] = {"ln1": init_norm(cfg.norm, cfg.d_model, dtype,
+                                          device),
+                         "ln2": init_norm(cfg.norm, cfg.d_model, dtype,
+                                          device)}
+    if kind == "attn":
+        p["mix"] = L.init_attention(gen, cfg.attention, cfg.d_model, dtype,
+                                    device)
+    else:
+        p["mix"] = init_mamba(gen, cfg.ssm, cfg.d_model, dtype, device)
+    if is_moe:
+        p["ffn"] = init_moe(gen, cfg.moe, cfg.d_model, dtype, device)
+    elif cfg.d_ff > 0:
+        gated = cfg.activation == "silu"
+        p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                              gated=gated)
+    else:
+        del p["ln2"]  # pure-mamba layer (falcon-mamba): mixer only
+    return p
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.enc_dec is not None:
+        raise NotImplementedError(
+            "the encoder-decoder family (whisper) is not ported to "
+            "repro_torch yet; see ROADMAP.md, queue A, item 10")
+    if cfg.attention.kind == "mla" and "attn" in cfg.layer_kinds():
+        raise NotImplementedError(L.MLA_NOT_PORTED)
+
+
+def _init_tree(cfg: ModelConfig, gen, device) -> Dict:
+    _check_supported(cfg)
+    dtype = _dtype(cfg.param_dtype)
+    kinds, moes = cfg.layer_kinds(), cfg.moe_layers()
+    s = cfg.d_model ** -0.5
+    tree: Dict[str, Any] = {
+        "embed": L.normal(gen, (cfg.vocab_size, cfg.d_model), dtype, s,
+                          device),
+        "layers": [_init_layer(gen, cfg, kinds[i], moes[i], dtype, device)
+                   for i in range(cfg.n_layers)],
+        "final_norm": init_norm(cfg.norm, cfg.d_model, dtype, device),
+    }
+    if not cfg.tie_embeddings:
+        tree["unembed"] = L.normal(gen, (cfg.d_model, cfg.vocab_size), dtype,
+                                   s, device)
+    if cfg.n_patches > 0:  # VLM stub: projection of precomputed patch embeds
+        tree["patch_proj"] = L.normal(gen, (cfg.d_model, cfg.d_model), dtype,
+                                      s, device)
+    return tree
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
+    """Random parameters at the reference's init scales (not its PRNG
+    stream), drawn from ``generator`` on the generator's device."""
+    pattern_period(cfg)
+    return LM(cfg, _init_tree(cfg, generator, generator.device))
+
+
+def param_specs(cfg: ModelConfig) -> Dict:
+    """The port's parameter layout as ``meta`` tensors (shapes and dtypes,
+    no storage)."""
+    return _init_tree(cfg, None, torch.device("meta"))
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _layer_apply(cfg: ModelConfig, kind: str, is_moe: bool, lp: Mapping,
+                 x: torch.Tensor, positions: torch.Tensor,
+                 cache: Optional[Dict], impl: str, chunk: int,
+                 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = norm(cfg.norm, x, lp["ln1"])
+    if kind == "attn":
+        mixed, new_cache = L.attention_block(
+            lp["mix"], h, cfg.attention, positions=positions, causal=True,
+            cache=cache, impl=impl, chunk=chunk)
+    else:
+        mixed, new_cache = mamba_block(lp["mix"], h, cfg.ssm, cache=cache,
+                                       impl=cfg.ssm_impl)
+    x = x + mixed
+    if "ffn" not in lp:          # pure-mamba layer (falcon-mamba)
+        return x, new_cache, aux
+    h = norm(cfg.norm, x, lp["ln2"])
+    if is_moe:
+        ff, aux = moe_block(lp["ffn"], h, cfg.moe, activation=cfg.activation)
+    else:
+        ff = L.mlp_block(lp["ffn"], h, cfg.activation)
+    return x + ff, new_cache, aux
+
+
+def _tokens(params: LM, tokens) -> torch.Tensor:
+    return torch.as_tensor(tokens, dtype=torch.long,
+                           device=params.embed.device)
+
+
+def _embed(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+           patches, dtype: torch.dtype) -> torch.Tensor:
+    x = params.embed[tokens].to(dtype)
+    if cfg.n_patches > 0 and patches is not None:
+        patches = torch.as_tensor(patches, device=x.device)
+        px = patches.to(dtype) @ params.patch_proj.to(dtype)
+        x = torch.cat([px, x], dim=1)
+    return x
+
+
+def _unembed(params: LM, x: torch.Tensor, dtype: torch.dtype
+             ) -> torch.Tensor:
+    if params.unembed is None:
+        return x @ params.embed.T.to(dtype)
+    return x @ params.unembed.to(dtype)
+
+
+def _layers(params: LM, dtype: torch.dtype):
+    """(layer, its parameters cast to the compute dtype), layer by layer."""
+    for layer in params.layers:
+        yield layer, cast_tree(layer.tree(), dtype)
+
+
+@torch.inference_mode()
+def forward_with_aux(params: LM, cfg: ModelConfig, tokens,
+                     patches=None, impl: Optional[str] = None,
+                     chunk: int = 1024, remat: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S_text); VLM: patches (B, n_patches, d) prepended.
+    Returns (logits (B, S_total, V), MoE aux loss).  ``remat`` is the
+    reference's training knob and has no effect here."""
+    impl = impl or cfg.attention_impl
+    dtype = _dtype(cfg.compute_dtype)
+    x = _embed(params, cfg, _tokens(params, tokens), patches, dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer, lp in _layers(params, dtype):
+        x, _, a = _layer_apply(cfg, layer.kind, layer.is_moe, lp, x,
+                               positions, None, impl, chunk)
+        aux = aux + a
+    x = norm(cfg.norm, x, params.final_norm.tree())
+    return _unembed(params, x, dtype), aux
+
+
+def forward(params: LM, cfg: ModelConfig, tokens, patches=None,
+            impl: Optional[str] = None, chunk: int = 1024,
+            remat: bool = True) -> torch.Tensor:
+    return forward_with_aux(params, cfg, tokens, patches, impl, chunk,
+                            remat)[0]
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 dtype: torch.dtype, device) -> Dict:
+    a = cfg.attention
+    if kind == "attn":
+        t = max_len if a.window == 0 else min(max_len,
+                                              _round_up(a.window, 128))
+        return {"k": torch.zeros((batch, t, a.n_kv_heads, a.head_dim),
+                                 dtype=dtype, device=device),
+                "v": torch.zeros((batch, t, a.n_kv_heads, a.head_dim),
+                                 dtype=dtype, device=device),
+                "kpos": torch.full((t,), -1, dtype=torch.int32,
+                                   device=device),
+                "pos": 0}
+    return init_mamba_cache(cfg.ssm, cfg.d_model, batch, dtype, device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device) -> List[Dict]:
+    """One cache per layer, in layer order (attention: KV ring or buffer
+    with absolute positions; mamba: conv tail and SSM state)."""
+    _check_supported(cfg)
+    dtype = _dtype(cfg.compute_dtype)
+    return [_layer_cache(cfg, kind, batch, max_len, dtype, device)
+            for kind in cfg.layer_kinds()]
+
+
+@torch.inference_mode()
+def prefill(params: LM, cfg: ModelConfig, tokens, cache: List[Dict],
+            patches=None, impl: str = "chunked", chunk: int = 1024
+            ) -> Tuple[torch.Tensor, List[Dict]]:
+    """Run the prompt through the model, filling the caches.  Returns
+    (last-position logits (B, 1, V), caches)."""
+    dtype = _dtype(cfg.compute_dtype)
+    x = _embed(params, cfg, _tokens(params, tokens), patches, dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    new_cache = []
+    for (layer, lp), c in zip(_layers(params, dtype), cache):
+        x, nc, _ = _layer_apply(cfg, layer.kind, layer.is_moe, lp, x,
+                                positions, c, impl, chunk)
+        new_cache.append(nc if nc is not None else c)
+    x = norm(cfg.norm, x[:, -1:], params.final_norm.tree())
+    return _unembed(params, x, dtype), new_cache
+
+
+@torch.inference_mode()
+def decode_step(params: LM, cfg: ModelConfig, token, cache: List[Dict]
+                ) -> Tuple[torch.Tensor, List[Dict]]:
+    """One decode step.  token: (B, 1) -> logits (B, 1, V), caches."""
+    dtype = _dtype(cfg.compute_dtype)
+    x = params.embed[_tokens(params, token)].to(dtype)
+    positions = torch.full((1, 1), _find_pos(cache), dtype=torch.long,
+                           device=x.device)
+    new_cache = []
+    for (layer, lp), c in zip(_layers(params, dtype), cache):
+        x, nc, _ = _layer_apply(cfg, layer.kind, layer.is_moe, lp, x,
+                                positions, c, "dense", 1024)
+        new_cache.append(nc if nc is not None else c)
+    x = norm(cfg.norm, x, params.final_norm.tree())
+    return _unembed(params, x, dtype), new_cache
+
+
+def _find_pos(cache: List[Dict]) -> int:
+    for c in cache:
+        if "pos" in c:
+            return int(c["pos"])
+    return 0

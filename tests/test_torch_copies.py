@@ -9,26 +9,38 @@ JAX reference package.
     identical;
 (c) the port imports neither ``jax`` nor ``repro`` (AST scan of every
     file, and a subprocess that runs a tiny CPU explore);
-(d) entry points run on ``cuda`` by default and raise without a card.
+(d) entry points run on ``cuda`` by default and raise without a card;
+(e) the LM slice: the ten config modules equal the reference's, the
+    reference's parameter pytree carries across (``lm_params_from_numpy``)
+    with every leaf checked, and ``Model.logits`` runs with neither
+    ``jax`` nor ``repro`` loaded.
 """
 
 import ast
 import os
 import subprocess
 import sys
+from dataclasses import asdict, replace
 from pathlib import Path
 
 import jax  # noqa: F401  (both frameworks in one process; JAX on the CPU)
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import repro.configs as ref_configs
+import repro_torch.configs as port_configs
 from repro.core.aidg import explorer as ref_ex
-from repro_torch.convert import ARRAY_FIELDS, DICT_FIELDS, aidg_from_numpy
+from repro.models import get_model as ref_get_model
+from repro_torch.convert import (ARRAY_FIELDS, DICT_FIELDS, aidg_from_numpy,
+                                 cast_params, lm_params_from_numpy)
 from repro_torch.core.aidg import builder as port_builder
 from repro_torch.core.aidg import dse as port_dse
 from repro_torch.core.aidg import explorer as port_ex
 from repro_torch.core.aidg import maxplus as port_mp
+from repro_torch.models import get_model as port_get_model
+from repro_torch.models import lm as port_lm
 
 ROOT = Path(__file__).resolve().parents[1]
 REF_SCEN = ref_ex.default_scenarios()
@@ -203,3 +215,130 @@ def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch):
     # asking for the CPU explicitly works
     t = port_mp.longest_path_wavefront(cs.aidg, device="cpu")
     assert t.device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# (e) the LM slice: config copies, parameter conversion, standing alone
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ref_configs.all_arch_ids())
+def test_config_copies_equal_reference(arch):
+    assert port_configs.all_arch_ids() == ref_configs.all_arch_ids()
+    assert port_configs.ALIASES == ref_configs.ALIASES
+    for getter in ("get_config", "get_smoke_config"):
+        ref = getattr(ref_configs, getter)(arch)
+        port = getattr(port_configs, getter)(arch)
+        assert type(port).__module__.startswith("repro_torch.")
+        assert asdict(port) == asdict(ref)
+    for alias, name in ref_configs.ALIASES.items():
+        assert asdict(port_configs.get_config(alias)) == \
+            asdict(ref_configs.get_config(name))
+
+
+def _ref_tree(arch, **over):
+    cfg = replace(ref_configs.get_smoke_config(arch), **over)
+    params = ref_get_model(cfg).init_params(jax.random.key(0))
+    return (replace(port_configs.get_smoke_config(arch), **over),
+            jax.tree.map(np.asarray, params))
+
+
+def test_lm_params_from_numpy_round_trip():
+    """Every leaf lands where the reference keeps it (layer r*P + pos <-
+    blocks[pos][...][r]).  A 4-layer jamba-shaped stack with attention
+    every 2 layers has P = 2 pattern positions x R = 2 repeats."""
+    cfg, tree = _ref_tree("jamba_v01_52b", n_layers=4, attn_period=2,
+                          attn_offset=1)
+    model = lm_params_from_numpy(cfg, tree, device="cpu")
+    P = port_lm.pattern_period(cfg)
+    assert (P, cfg.n_layers // P) == (2, 2)
+    n_ref = sum(a.size for a in jax.tree.leaves(tree))
+    assert sum(p.numel() for p in model.parameters()) == n_ref
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            r, pos = divmod(int(parts[1]), P)
+            node = tree["blocks"][pos]
+            for key in parts[2:]:
+                node = node[key]
+            want = node[r]
+        else:
+            want = tree[parts[0]]
+            for key in parts[1:]:
+                want = want[key]
+        assert p.dtype == torch.float32
+        assert np.array_equal(p.numpy(), want), name
+    # the float32 leaves survive a cast, the rest is cast once, in place
+    cast_params(model, torch.bfloat16)
+    assert model.layers[0].mix.A_log.dtype == torch.float32
+    assert model.layers[1].ffn.router.dtype == torch.float32
+    assert model.layers[0].mix.in_proj.dtype == torch.bfloat16
+    assert model.embed.dtype == torch.bfloat16
+
+
+def test_lm_params_from_numpy_checks_leaves():
+    cfg, tree = _ref_tree("olmo_1b")
+    blocks = [dict(b) for b in tree["blocks"]]
+    mix = {k: v for k, v in blocks[0]["mix"].items() if k != "wq"}
+    missing = dict(tree, blocks=tuple([dict(blocks[0], mix=mix)]))
+    with pytest.raises(KeyError, match="blocks\\[0\\]/mix/wq"):
+        lm_params_from_numpy(cfg, missing, device="cpu")
+    wide = dict(tree, embed=np.zeros((cfg.vocab_size, cfg.d_model + 1),
+                                     np.float32))
+    with pytest.raises(ValueError, match="embed"):
+        lm_params_from_numpy(cfg, wide, device="cpu")
+    f64 = dict(tree, embed=tree["embed"].astype(np.float64))
+    with pytest.raises(ValueError, match="float64"):
+        lm_params_from_numpy(cfg, f64, device="cpu")
+    extra = dict(tree, extra_leaf=np.zeros(3, np.float32))
+    with pytest.raises(ValueError, match="extra_leaf"):
+        lm_params_from_numpy(cfg, extra, device="cpu")
+    # bf16 leaves (ml_dtypes) come across too
+    bf_cfg = replace(cfg, param_dtype="bfloat16")
+    bf_tree = jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)),
+                           tree)
+    model = lm_params_from_numpy(bf_cfg, bf_tree, device="cpu")
+    assert model.embed.dtype == torch.bfloat16
+    assert np.array_equal(model.embed.float().numpy(),
+                          np.asarray(bf_tree["embed"], np.float32))
+
+
+def test_lm_runs_without_jax_or_repro_loaded():
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.models import get_model\n"
+        "cfg = get_smoke_config('jamba_v01_52b')\n"
+        "m = get_model(cfg)\n"
+        "params = m.init_params(0, device='cpu')\n"
+        "toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8))\n"
+        "lg = m.logits(params, {'tokens': toks})\n"
+        "assert lg.shape == (2, 8, cfg.vocab_size)\n"
+        "assert bool(lg.float().isfinite().all())\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_card(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = port_configs.get_smoke_config("olmo_1b")
+    model = port_get_model(cfg)
+    for call in (lambda: model.init_params(0),
+                 lambda: model.init_cache(1, 8),
+                 lambda: lm_params_from_numpy(cfg, {})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert model.init_params(0, device="cpu").embed.device.type == "cpu"
+    # not ported: the enc-dec family and the dry run
+    whisper = port_get_model(port_configs.get_smoke_config("whisper_small"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        whisper.init_params(0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.abstract_params()

@@ -1,6 +1,8 @@
-"""Card-only tests of the port: the hand-written max-plus kernel against its
-plain PyTorch version on the card, and the blocked Explorer path on the
-card.  Every test is marked ``cuda`` and skips where no card is present.
+"""Card-only tests of the port: each hand-written kernel (max-plus,
+flash attention, selective scan) against its plain PyTorch version on the
+card, the blocked Explorer path and a small LM forward through the
+kernels.  Every test is marked ``cuda`` and skips where no card is
+present.
 
 This file imports neither ``jax`` nor ``repro``, so it runs on a machine
 that has only PyTorch:
@@ -9,15 +11,24 @@ that has only PyTorch:
 
 (``--noconftest`` skips ``tests/conftest.py``, whose fixtures load the JAX
 package.)  Max-plus ⊗ is exact — one float32 add, then a max — so the
-kernel must equal the plain version bit for bit (``torch.equal``).
+kernel must equal the plain version bit for bit (``torch.equal``); the
+attention and scan kernels are held to the reference's own kernel-test
+tolerances, with TF32 off for the float32 plain versions.
 """
+
+from dataclasses import replace
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core.aidg import explorer as port_ex
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import maxplus as K
+from repro_torch.kernels import selective_scan as SS
+from repro_torch.models import get_model
+from repro_torch.models import lm as port_lm
 
 NEG = -1e18
 GOLDEN_THETA1_CYCLES = [3832.0, 1187.0, 2954.0, 980.0, 2753.0, 91.0, 91.0,
@@ -91,3 +102,155 @@ def test_blocked_explorer_on_card_matches_cpu(card):
     cpu = port_ex.Explorer(engine="blocked", device="cpu").explore(cand)
     assert np.array_equal(res.cycles[0], cpu.cycles[0])
     np.testing.assert_allclose(res.cycles, cpu.cycles, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# flash attention and selective scan (the LM path's kernels)
+# ---------------------------------------------------------------------------
+
+
+# float32: the tolerances of the reference's own kernel tests
+# (tests/test_kernels.py); bfloat16: element by element within
+# FA.bf16_error_bound, which follows from bf16 rounding (see its docstring)
+FLASH_F32_TOL = dict(atol=2e-4, rtol=1e-3)
+SCAN_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def assert_flash_close(out, q, k, v, causal=True, window=0):
+    want = FA.flash_attention_torch(q, k, v, causal=causal, window=window)
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(out, want, **FLASH_F32_TOL)
+        return
+    bound = FA.bf16_error_bound(q, k, v, causal=causal, window=window)
+    err = (out.float() - want.float()).abs()
+    assert bool((err <= bound).all()), (
+        f"{int((err > bound).sum())} elements beyond the bf16 bound, max "
+        f"|err| / bound {float((err / bound).max()):.3f}")
+
+
+@pytest.fixture
+def exact_f32():
+    """Full float32 matmuls for the plain versions (no TF32)."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+@pytest.mark.parametrize("bh,bkv,sq,sk,dq,dv,causal,window,dtype", [
+    (2, 2, 128, 128, 64, 64, True, 0, torch.float32),
+    (4, 4, 256, 256, 64, 64, True, 0, torch.float32),
+    (1, 1, 160, 160, 64, 64, True, 0, torch.float32),       # ragged
+    (2, 2, 128, 128, 64, 64, False, 0, torch.float32),      # non-causal
+    (2, 2, 256, 256, 64, 64, True, 64, torch.float32),      # window
+    (2, 2, 256, 256, 128, 128, True, 0, torch.float32),
+    (8, 2, 200, 200, 128, 128, True, 0, torch.float32),     # GQA
+    (2, 2, 128, 128, 128, 64, True, 0, torch.float32),      # Dv != Dq
+    (3, 1, 100, 77, 16, 16, False, 0, torch.float32),       # Sq != Sk
+    (2, 2, 300, 300, 120, 120, True, 100, torch.float32),   # h2o-danube
+    # bf16, Dq == Dv == 128: the tensor-core kernel
+    (8, 2, 256, 256, 128, 128, True, 0, torch.bfloat16),
+    (1, 1, 160, 160, 128, 128, True, 0, torch.bfloat16),    # ragged
+    (2, 2, 256, 256, 128, 128, True, 64, torch.bfloat16),   # window
+    (3, 1, 100, 77, 128, 128, False, 0, torch.bfloat16),    # Sq != Sk
+    # bf16 elsewhere: the CUDA-core kernel
+    (2, 2, 128, 128, 64, 64, True, 0, torch.bfloat16),
+    (2, 2, 256, 256, 64, 64, True, 64, torch.bfloat16),     # window
+    (3, 1, 100, 77, 64, 64, False, 0, torch.bfloat16),      # Sq != Sk
+    (2, 2, 128, 128, 128, 64, True, 0, torch.bfloat16),     # Dv != Dq
+    (2, 2, 96, 96, 32, 32, True, 0, torch.bfloat16),
+    (2, 2, 200, 200, 120, 120, True, 0, torch.bfloat16),    # h2o-danube
+])
+def test_kernel_flash_attention_matches_plain(card, exact_f32, bh, bkv, sq,
+                                              sk, dq, dv, causal, window,
+                                              dtype):
+    rng = np.random.default_rng(bh * sq + dq + dv + window)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(dtype).to(card)
+               for shape in ((bh, sq, dq), (bkv, sk, dq), (bkv, sk, dv)))
+    launches = FA.LAUNCHES["flash_attention"]
+    out = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention"] == launches + 1
+    assert out.dtype == dtype and out.shape == (bh, sq, dv)
+    assert_flash_close(out, q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("B,S,D,N", [(2, 16, 32, 4), (1, 64, 128, 16),
+                                     (2, 33, 48, 8), (1, 20, 100, 8),
+                                     (2, 33, 100, 8), (1, 130, 260, 16)])
+def test_kernel_selective_scan_matches_plain(card, B, S, D, N):
+    rng = np.random.default_rng(B * S + D + N)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(card)
+    x = f(rng.normal(size=(B, S, D)) * 0.5)
+    dt = f(np.abs(rng.normal(size=(B, S, D))) * 0.1)
+    b, c = f(rng.normal(size=(B, S, N))), f(rng.normal(size=(B, S, N)))
+    a = f(-(np.abs(rng.normal(size=(D, N))) + 0.1))
+    d = f(rng.normal(size=(D,)))
+    launches = SS.LAUNCHES["selective_scan"]
+    out = SS.selective_scan(x, dt, b, c, a, d)
+    torch.cuda.synchronize()
+    assert SS.LAUNCHES["selective_scan"] == launches + 1
+    torch.testing.assert_close(out, SS.selective_scan_torch(x, dt, b, c, a,
+                                                            d), **SCAN_TOL)
+
+
+def test_flash_attention_unaligned_bf16_matches_plain(card):
+    """bf16 tensors that are contiguous but not 16-byte aligned (a storage
+    offset of one element) take the CUDA-core kernel; same function."""
+    rng = np.random.default_rng(9)
+    views = []
+    for shape in ((4, 128, 128), (2, 128, 128), (2, 128, 128)):
+        flat = torch.from_numpy(rng.normal(size=int(np.prod(shape)) + 1)
+                                .astype(np.float32)).to(torch.bfloat16)
+        views.append(flat.to(card)[1:].view(shape))
+    q, k, v = views
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    assert_flash_close(FA.flash_attention(q, k, v, causal=True), q, k, v)
+
+
+def test_new_kernels_reject_what_they_cannot_take(card):
+    q = torch.zeros((2, 8, 16), device=card)
+    with pytest.raises(TypeError):
+        FA.flash_attention(q, q.half(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           q, q)
+    wide = torch.zeros((2, 8, FA.MAX_HEAD_DIM + 8), device=card)
+    with pytest.raises(ValueError, match="head dims"):
+        FA.flash_attention(wide, wide, wide)
+    x = torch.zeros((1, 4, 8), device=card)
+    s = torch.zeros((1, 4, 2), device=card)
+    with pytest.raises(TypeError):
+        SS.selective_scan(x.double(), x, s, s, torch.zeros((8, 2),
+                                                           device=card),
+                          torch.zeros(8, device=card))
+    n = SS.MAX_STATE + 1
+    s = torch.zeros((1, 4, n), device=card)
+    with pytest.raises(ValueError, match="N <="):
+        SS.selective_scan(x, x, s, s, torch.zeros((8, n), device=card),
+                          torch.zeros(8, device=card))
+
+
+def test_lm_forward_on_card_goes_through_the_kernels(card, exact_f32):
+    """jamba's smoke config on the card, float32: the kernel impls agree
+    with the plain impls (the reference's integration tolerance), flash
+    attention launched once and the scan 7 times, no plain version ran."""
+    cfg = replace(get_smoke_config("jamba_v01_52b"), compute_dtype="float32")
+    model = get_model(cfg)
+    params = model.init_params(0, device=card)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64))).to(card)
+    FA.reset_counts()
+    SS.reset_counts()
+    kern = port_lm.forward(params, replace(cfg, attention_impl="flash_pallas",
+                                           ssm_impl="pallas"), toks)
+    assert FA.LAUNCHES["flash_attention"] == 1
+    assert SS.LAUNCHES["selective_scan"] == 7
+    assert FA.PLAIN_CALLS["flash_attention"] == 0
+    assert SS.PLAIN_CALLS["selective_scan"] == 0
+    plain = port_lm.forward(params, cfg, toks)
+    torch.testing.assert_close(kern, plain, atol=3e-4, rtol=1e-3)

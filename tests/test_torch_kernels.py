@@ -17,9 +17,12 @@ import torch
 
 from repro.core.aidg import maxplus as ref_mp
 from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_kernels
 from repro.kernels.maxplus import maxplus_matvec_pallas
 from repro_torch.core.aidg import maxplus as port_mp
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import maxplus as K
+from repro_torch.kernels import selective_scan as SS
 
 NEG = -1e18
 
@@ -119,3 +122,123 @@ def test_plain_version_never_builds_the_cube():
     A = torch.zeros((1, 16, 128))
     B = torch.zeros((1, 128, 16))
     assert torch.equal(K.maxplus_matmul_torch(A, B), torch.zeros((1, 16, 16)))
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the selective scan: plain versions vs the Pallas
+# kernels (interpret mode), with the reference's own tolerances
+# (tests/test_kernels.py: flash f32 atol 2e-4 rtol 1e-3, bf16 3e-2; scan
+# atol/rtol 1e-4)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,h,s,d,causal,window", [
+    (1, 2, 128, 64, True, 0),
+    (2, 2, 256, 64, True, 0),
+    (1, 1, 160, 64, True, 0),       # ragged -> padded in the reference
+    (1, 2, 128, 64, False, 0),
+    (1, 2, 256, 64, True, 64),      # sliding window
+    (1, 2, 256, 128, True, 0),
+])
+def test_plain_flash_attention_matches_pallas(b, h, s, d, causal, window):
+    rng = np.random.default_rng(b * 1000 + h * 100 + s + d + window)
+    q, k, v = (rng.normal(size=(b * h, s, d)).astype(np.float32)
+               for _ in range(3))
+    ref = ref_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal,
+                                  window=window, bq=64, bk=64)
+    out = FA.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), causal=causal,
+                             window=window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-4,
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("s,d,causal,window", [
+    (128, 64, True, 0), (256, 128, True, 0), (256, 128, True, 64),
+    (128, 128, False, 0)])
+def test_plain_flash_attention_bf16_and_gqa_match_pallas(s, d, causal,
+                                                         window):
+    """bf16 inputs; GQA: 4 query heads over 2 KV heads equal the Pallas
+    kernel over expanded (repeated) KV heads.  The Pallas kernel rounds its
+    probabilities to bf16 before the product with v, as the port's CUDA
+    kernel does, so it is held within ``bf16_error_bound`` of the plain
+    version -- the limit the CUDA kernel is held to on the card."""
+    rng = np.random.default_rng(5 + s + d + window)
+    q = rng.normal(size=(4, s, d)).astype(np.float32)
+    kv = rng.normal(size=(2, 2, s, d)).astype(np.float32)
+    to_bf = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    ref = ref_ops.flash_attention(to_bf(q), to_bf(np.repeat(kv[0], 2, 0)),
+                                  to_bf(np.repeat(kv[1], 2, 0)),
+                                  causal=causal, window=window, bq=64, bk=64)
+    tb = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    q, k, v = tb(q), tb(kv[0]), tb(kv[1])
+    out = FA.flash_attention(q, k, v, causal=causal, window=window)
+    assert out.dtype == torch.bfloat16
+    bound = FA.bf16_error_bound(q, k, v, causal=causal, window=window)
+    err = (torch.from_numpy(np.asarray(ref, np.float32)) - out.float()).abs()
+    assert bool((err <= bound).all()), float((err / bound).max())
+
+
+def test_plain_flash_attention_dv_differs_from_dq():
+    """Dv != Dq (ROADMAP C1: the Pallas kernel returns NaN there), held
+    against ``ref.flash_attention_ref``; non-causal ragged Sk too."""
+    rng = np.random.default_rng(6)
+    q = rng.normal(size=(2, 128, 64)).astype(np.float32)
+    k = rng.normal(size=(2, 128, 64)).astype(np.float32)
+    v = rng.normal(size=(2, 128, 32)).astype(np.float32)
+    for causal, sk in ((True, 128), (False, 77)):
+        ref = ref_kernels.flash_attention_ref(
+            jnp.asarray(q)[None], jnp.asarray(k[:, :sk])[None],
+            jnp.asarray(v[:, :sk])[None], causal=causal)[0]
+        out = FA.flash_attention(torch.from_numpy(q),
+                                 torch.from_numpy(k[:, :sk]).contiguous(),
+                                 torch.from_numpy(v[:, :sk]).contiguous(),
+                                 causal=causal)
+        assert out.shape == (2, 128, 32)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-4,
+                                   rtol=1e-3)
+
+
+@pytest.mark.parametrize("B,S,D,N,bd", [(2, 16, 32, 4, 16),
+                                        (1, 64, 128, 16, 64),
+                                        (2, 33, 48, 8, 16),
+                                        (1, 20, 100, 8, 64)])
+def test_plain_selective_scan_matches_pallas(B, S, D, N, bd):
+    rng = np.random.default_rng(B * S + D + N)
+    x = (rng.normal(size=(B, S, D)) * 0.5).astype(np.float32)
+    dt = (np.abs(rng.normal(size=(B, S, D))) * 0.1).astype(np.float32)
+    b = rng.normal(size=(B, S, N)).astype(np.float32)
+    c = rng.normal(size=(B, S, N)).astype(np.float32)
+    a = -(np.abs(rng.normal(size=(D, N))) + 0.1).astype(np.float32)
+    d = rng.normal(size=(D,)).astype(np.float32)
+    ref = ref_ops.selective_scan(*map(jnp.asarray, (x, dt, b, c, a, d)),
+                                 bd=bd)
+    out = SS.selective_scan(*map(torch.from_numpy, (x, dt, b, c, a, d)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_new_wrappers_count_plain_calls_and_check_shapes():
+    for m in (K, FA, SS):
+        m.reset_counts()
+    q = torch.zeros((2, 8, 16))
+    FA.flash_attention(q, q[:1], q[:1])                   # GQA group 2
+    x = torch.zeros((1, 4, 8))
+    s = torch.zeros((1, 4, 2))
+    SS.selective_scan(x, x, s, s, torch.zeros((8, 2)), torch.zeros(8))
+    assert FA.PLAIN_CALLS == {"flash_attention": 1}
+    assert SS.PLAIN_CALLS == {"selective_scan": 1}
+    assert sum(K.PLAIN_CALLS.values()) == 0
+    assert FA.LAUNCHES == {"flash_attention": 0}
+    assert SS.LAUNCHES == {"selective_scan": 0}
+    FA.reset_counts()
+    SS.reset_counts()
+    assert FA.PLAIN_CALLS["flash_attention"] == 0
+    assert SS.PLAIN_CALLS["selective_scan"] == 0
+    with pytest.raises(ValueError, match="divid"):
+        FA.flash_attention(q, q[:1].expand(3, 8, 16), q[:1].expand(3, 8, 16))
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        FA.flash_attention(q, q[:, :4], q[:, :4], causal=True)
+    with pytest.raises(ValueError, match="selective_scan"):
+        SS.selective_scan(x, x, s, s, torch.zeros((7, 2)), torch.zeros(8))
