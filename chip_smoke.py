@@ -9,7 +9,8 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel source (``src/repro_torch/csrc/{maxplus,
-   flash_attention,selective_scan}.cu``) with ``nvcc`` (sm_90a) into
+   flash_attention,selective_scan,systolic_gemm}.cu``) with ``nvcc``
+   (sm_90a) into
    ``build/repro_torch/``, one ``nvcc`` per source, all started together;
    print the build times and the ``-Xptxas -v`` register and
    shared-memory summaries;
@@ -55,10 +56,27 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    before and read just after each (flash once and the scan 7 times per
    forward, no plain version on the card); peak memory, and one scoring
    forward under ``torch.profiler``;
+9. the systolic GEMM through ``kernels.ops.gemm`` at olmo-1b's distinct
+   GEMM shapes, as the port's ``extract_operators`` gives them (decode at
+   the network cells' shape, M = 8, and prefill at 4 x 2048, M = 8192; K
+   = 2048, N in {2048, 4096, 24576, 50304}): bf16 in, float32 out at
+   every shape, ReLU at the ``mlp`` shape, and float32 in and out (TF32
+   off) at the prefill ``mlp`` shape; the counters zeroed just before and
+   read just after; each result held element by element within
+   ``systolic_gemm.error_bound`` of the plain version; CUDA-event times of
+   the kernel, the plain version and ``torch.matmul`` beside the bound;
+10. the default packed Explorer over the 10 operator cells and the 21
+   network cells, ``Explorer(networks=True, device="cuda")``: θ = 1 equal
+   to the operator goldens and within rel 1e-4 of the network goldens,
+   packed against the blocked engine of phase 4 on 256 candidates within
+   ``PACKED_VS_BLOCKED``; build time, ``PackedMatrix.stats()``, explore
+   rate over 4096 candidates (median of 3 after a warm-up), the device's
+   idle share from one profiled explore and peak memory; no plain version
+   of any kernel may run;
 
-then one ``{"kernels": [...]}`` line, the card line again, and as the last
-line ``{"ok": true, "device": {...}}``.  It needs one card; without one it
-exits non-zero before printing any result.
+each phase's time, then one ``{"kernels": [...]}`` line, the card line
+again, and as the last line ``{"ok": true, "device": {...}}``.  It needs
+one card; without one it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -107,6 +125,14 @@ LOGITS_TOL = (3e-4, 1e-3)  # tests/test_kernel_integration.py
 # further (RMS) from the float32 logits than the plain path's
 BF16_PARITY = 1.1
 
+# -- the systolic GEMM at olmo-1b's shapes ----------------------------------
+GEMM_ARCH = "olmo_1b"
+PREFILL_B, PREFILL_S = 4, 2048
+# -- the packed Explorer: packed vs the blocked engine of phase 4, relative;
+# the two order a queue's tied arrivals differently (the reference's own
+# notes allow about 0.3%)
+PACKED_VS_BLOCKED = 3e-3
+
 # θ = 1 cycles of the 10 default cells, pinned in the reference's tests
 GOLDEN_THETA1_CYCLES = {
     "oma/gemm": 3832.0,
@@ -119,6 +145,31 @@ GOLDEN_THETA1_CYCLES = {
     "tpu_v5e/gemm": 3881.0,
     "tpu_v5e/attention": 225.0,
     "tpu_v5e/scan": 613.0,
+}
+# θ = 1 end-to-end cycles of the 21 network cells, pinned in the
+# reference's tests (tests/test_network.py), held within rel 1e-4
+GOLDEN_E2E_THETA1 = {
+    "oma/whisper_small": 9.2163109e+12,
+    "systolic/whisper_small": 2.0121045e+12,
+    "gamma/whisper_small": 1.0193998e+11,
+    "eyeriss/whisper_small": 1.5446227e+11,
+    "plasticine/whisper_small": 9.1819614e+10,
+    "tpu_v5e/whisper_small": 1.7191464e+07,
+    "oma/olmo_1b": 7.1448527e+10,
+    "systolic/olmo_1b": 1.5598639e+10,
+    "gamma/olmo_1b": 8.8078502e+08,
+    "eyeriss/olmo_1b": 1.1975136e+09,
+    "plasticine/olmo_1b": 7.1182234e+08,
+    "tpu_v5e/olmo_1b": 5.3353780e+06,
+    "oma/olmoe_1b_7b": 7.1562822e+10,
+    "systolic/olmoe_1b_7b": 1.5623592e+10,
+    "gamma/olmoe_1b_7b": 8.8229747e+08,
+    "eyeriss/olmoe_1b_7b": 1.1994728e+09,
+    "plasticine/olmoe_1b_7b": 7.1296102e+08,
+    "tpu_v5e/olmoe_1b_7b": 2.2523700e+06,
+    "gamma/falcon_mamba_7b": 4.9923226e+09,
+    "plasticine/falcon_mamba_7b": 3.7337580e+09,
+    "tpu_v5e/falcon_mamba_7b": 3.1134014e+07,
 }
 
 
@@ -642,6 +693,186 @@ def jamba_phases(FA, SS, dev) -> dict:
             for k in ("flash_attention", "selective_scan")}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the systolic GEMM at olmo-1b's GEMM shapes
+# ---------------------------------------------------------------------------
+
+
+def olmo_gemm_shapes():
+    """[(label, M, K, N)]: the distinct GEMMs of olmo-1b as the port's
+    ``extract_operators`` gives them, at the network cells' decode shape
+    and at a 4 x 2048 prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mapping.workload import extract_operators
+    from repro_torch.core.network import NETWORK_SHAPE
+    from repro_torch.models.config import ShapeConfig
+    cfg = get_config(GEMM_ARCH)
+    prefill = ShapeConfig("prefill", seq_len=PREFILL_S,
+                          global_batch=PREFILL_B, mode="prefill")
+    out, seen = [], set()
+    for shape in (NETWORK_SHAPE, prefill):
+        for c in extract_operators(cfg, shape):
+            if c.op == "gemm" and (c.m, c.k, c.n) not in seen:
+                seen.add((c.m, c.k, c.n))
+                out.append((f"{shape.mode} {c.tag}", c.m, c.k, c.n))
+    return out
+
+
+def gemm_bound(m, k, n, in_dtype, out_dtype):
+    """(least ms, "operations" | "bytes"): 2 m k n flops at the peak rate
+    of the input type (tensor cores for bf16, CUDA cores for float32), or
+    one read of A and B and one write of C."""
+    flops = 2.0 * m * k * n
+    peak = BF16_FLOP_PER_S if in_dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    size = lambda dt: torch.finfo(dt).bits // 8  # noqa: E731
+    nbytes = (m * k + k * n) * size(in_dtype) + m * n * size(out_dtype)
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def gemm_phase(ops, SG, dev, shapes):
+    """Phase 9: ``ops.gemm`` at ``shapes``: the main-path run (counters
+    zeroed just before, read just after), then each result against the
+    plain version, then times.  Returns (row for the kernels line,
+    launches on the main path)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    cases = [(label, m, k, n, torch.bfloat16,
+              1 if label.endswith("mlp") else 0)
+             for label, m, k, n in shapes]
+    cases += [(label, m, k, n, torch.float32, 1)
+              for label, m, k, n in shapes
+              if label.endswith("mlp") and m == max(s[1] for s in shapes)]
+    inputs = [(torch.randn((m, k), generator=gen, device=dev).to(dt),
+               torch.randn((k, n), generator=gen, device=dev).to(dt))
+              for _, m, k, n, dt, _ in cases]
+    torch.cuda.synchronize()
+    SG.reset_counts()
+    outs = [ops.gemm(a, b, activation=act)
+            for (a, b), (*_, act) in zip(inputs, cases)]
+    torch.cuda.synchronize()
+    launches, plain = (SG.LAUNCHES["systolic_gemm"],
+                       SG.PLAIN_CALLS["systolic_gemm"])
+    check(launches == len(cases) and plain == 0,
+          f"ops.gemm main path: {launches} launches, {plain} plain calls "
+          f"for {len(cases)} products")
+    results = []
+    for (label, m, k, n, dt, act), (a, b), out in zip(cases, inputs, outs):
+        want = SG.systolic_gemm_torch(a, b, activation=act)
+        bnd = SG.error_bound(a, b, want)
+        err = (out - want).abs_()
+        bad, worst = int((err > bnd).sum()), float((err / bnd).max())
+        max_err = float(err.max())
+        finite = bool(torch.isfinite(out).all())
+        del err, bnd, want
+        check(finite and bad == 0,
+              f"systolic_gemm {label} ({m}, {k}, {n}) {str(dt)[6:]}: {bad} "
+              f"elements beyond the bound (max |err| / bound {worst:.3f}), "
+              f"finite {finite}")
+        big = m * k * n > 1e11
+        ms = cuda_ms(lambda: ops.gemm(a, b, activation=act),
+                     reps=3 if dt == torch.float32 else (10 if big else 50))
+        plain_ms = cuda_ms(lambda: SG.systolic_gemm_torch(
+            a, b, activation=act), reps=2 if big else 10)
+        lib_ms = cuda_ms(lambda: torch.matmul(a, b),
+                         reps=3 if dt == torch.float32 else (10 if big
+                                                             else 50))
+        bms, by = gemm_bound(m, k, n, dt, torch.float32)
+        results.append(dict(
+            label=label, shape=[m, k, n], dtype=str(dt)[6:], activation=act,
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+            bound_by=by, max_abs_err=max_err, err_over_bound=worst))
+        print(f"systolic_gemm {label} ({m}, {k}, {n}) {str(dt)[6:]} -> "
+              f"float32, ReLU {act}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.matmul ({str(dt)[6:]}) "
+              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+              f"{100 * bms / ms:.1f}% of bound, {lib_ms / ms:.3f}x the "
+              f"library's speed; max |err| {max_err:.3e}, max |err| / bound "
+              f"{worst:.4f}", flush=True)
+    del inputs, outs
+    torch.cuda.empty_cache()
+    # the kernels line carries the bf16 prefill mlp product, the path's
+    # largest; every case rides along under "cases"
+    row = next(r for r in results if r["dtype"] == "bfloat16"
+               and r["label"] == "prefill mlp")
+    row = dict(row, cases=results,
+               source="src/repro_torch/csrc/systolic_gemm.cu",
+               replaces="src/repro/kernels/systolic_gemm.py:29")
+    return row, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the default packed Explorer over the operator + network matrix
+# ---------------------------------------------------------------------------
+
+
+def packed_phase(modules, dev, blocked_cycles):
+    """Phase 10: ``Explorer(networks=True)`` with the default engine, its
+    goldens, packed vs the blocked engine on the operator cells, rate,
+    idle share and memory.  ``blocked_cycles``: phase 4's (N_CROSS, 10)
+    blocked cycles on the same seed-0 candidates."""
+    from repro_torch.core.aidg.explorer import (DEFAULT_SPACE, Explorer,
+                                                random_candidates)
+    cand = random_candidates(DEFAULT_SPACE, N_CAND, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in modules:
+        mod.reset_counts()
+    t = time.perf_counter()
+    ex = Explorer(networks=True, device=dev)
+    build_s = time.perf_counter() - t
+    check(ex.engine == "packed", f"default engine {ex.engine}")
+    t = time.perf_counter()
+    res = ex.explore(cand)
+    first_s = time.perf_counter() - t
+    plain = {k: v for mod in modules for k, v in mod.PLAIN_CALLS.items()}
+    check(sum(plain.values()) == 0, f"plain versions ran on the packed "
+                                    f"path: {plain}")
+    stats = ex.packed_matrix().stats()
+    S = len(ex.compiled)
+    print(f"packed Explorer: {S} cells ({len(GOLDEN_THETA1_CYCLES)} "
+          f"operator + {S - len(GOLDEN_THETA1_CYCLES)} network), build + "
+          f"θ=1 baselines {build_s:.3f} s; PackedMatrix.stats() {stats}; "
+          f"plain calls {plain}", flush=True)
+    names = ex.scenario_names
+    golden = list(GOLDEN_THETA1_CYCLES.values())
+    nop = len(golden)
+    check(names[:nop] == list(GOLDEN_THETA1_CYCLES)
+          and names[nop:] == list(GOLDEN_E2E_THETA1),
+          f"cell order {names}")
+    check(ex.baselines[:nop].tolist() == golden
+          and res.cycles[0, :nop].tolist() == golden,
+          f"packed θ=1 {ex.baselines[:nop].tolist()} != golden {golden}")
+    rel_net = {n: abs(float(b) - GOLDEN_E2E_THETA1[n]) / GOLDEN_E2E_THETA1[n]
+               for n, b in zip(names[nop:], ex.baselines[nop:])}
+    worst = max(rel_net.values())
+    check(worst <= 1e-4, f"network θ=1 off the goldens: {rel_net}")
+    check(np.isfinite(res.cycles).all() and res.cycles.shape == (N_CAND, S)
+          and np.isfinite(res.energy).all(), "cycles finite, shaped")
+    rel = (np.abs(res.cycles[:N_CROSS, :nop] - blocked_cycles)
+           / np.abs(blocked_cycles))
+    cross = float(rel.max())
+    check(cross <= PACKED_VS_BLOCKED,
+          f"packed vs blocked on {N_CROSS} candidates: {cross} > "
+          f"{PACKED_VS_BLOCKED}")
+    print(f"packed θ=1: operator cells equal the golden cycles; network "
+          f"cells within {worst:.3e} of theirs (limit 1e-4); packed vs "
+          f"blocked max rel. difference {cross:.3e} on {N_CROSS} "
+          f"candidates (limit {PACKED_VS_BLOCKED}), by cell "
+          f"{[f'{x:.1e}' for x in rel.max(axis=0)]}", flush=True)
+    secs = [timed(lambda: ex.explore(cand)) for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"packed explore: {S} cells x {N_CAND} candidates, first call "
+          f"{first_s:.3f} s, then 3 runs {fmt(secs)} s -> median "
+          f"{rate(S, secs):.0f} cell-candidates/s; Pareto size "
+          f"{len(res.pareto)}; peak device memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    profile_call(lambda: ex.explore(cand), "packed explore, 31 cells")
+    del ex, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -653,7 +884,9 @@ def main() -> int:
                                                 random_candidates)
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import maxplus as K
+    from repro_torch.kernels import ops
     from repro_torch.kernels import selective_scan as SS
+    from repro_torch.kernels import systolic_gemm as SG
 
     # every float32 comparison below runs in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -661,10 +894,16 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}", flush=True)
+    clock = [time.perf_counter()]
+
+    def phase_done(label: str) -> None:
+        now = time.perf_counter()
+        print(f"-- phase {label} took {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
 
     # -- 2. build, one nvcc per source, all started together ---------------
     builders = {"maxplus": K.build, "flash_attention": FA.build,
-                "selective_scan": SS.build}
+                "selective_scan": SS.build, "systolic_gemm": SG.build}
 
     def timed_build(fn):
         t0 = time.perf_counter()
@@ -681,6 +920,7 @@ def main() -> int:
     for name, (lib, secs) in built.items():
         print(f"{lib.name} ({secs:.1f} s); nvcc -Xptxas -v said:", flush=True)
         print(lib.with_suffix(".log").read_text().strip(), flush=True)
+    phase_done("2 (build)")
 
     # -- 3. kernels vs plain versions --------------------------------------
     scen = default_scenarios()
@@ -689,6 +929,7 @@ def main() -> int:
     path_batch = max(blocks.values()) * N_CAND
     print(f"blocks of {BLOCK} per cell: {blocks}", flush=True)
     rows = kernel_phase(K, path_batch, dev)
+    phase_done("3 (max-plus kernels)")
 
     # -- 4. the main path ---------------------------------------------------
     cand = random_candidates(DEFAULT_SPACE, N_CAND, seed=0)
@@ -759,21 +1000,37 @@ def main() -> int:
           f"event simulator; blocked vs wavefront max rel. difference "
           f"{cross:.3e} on {N_CROSS} candidates; on all {N_CAND}, by cell: "
           f"{per_cell}", flush=True)
+    blocked_cycles = res.cycles[:N_CROSS].copy()
 
     del ex, ex_wf, res, res_wf
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("4-5 (blocked Explorer)")
 
     # -- 6.-8. the LM path ---------------------------------------------------
     rows.update(lm_kernel_phase(FA, SS, dev))
+    phase_done("6 (flash attention, selective scan)")
     launches.update(jamba_phases(FA, SS, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("7-8 (jamba)")
+
+    # -- 9. the systolic GEMM through ops.gemm ------------------------------
+    rows["systolic_gemm"], launches["systolic_gemm"] = gemm_phase(
+        ops, SG, dev, olmo_gemm_shapes())
+    phase_done("9 (systolic GEMM)")
+
+    # -- 10. the default packed Explorer, 31 cells ---------------------------
+    packed_phase((K, FA, SS, SG), dev, blocked_cycles)
+    phase_done("10 (packed Explorer)")
 
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
-                    shape=r["shape"])
+                    shape=r["shape"],
+                    **({"cases": r["cases"]} if "cases" in r else {}))
                for name, r in rows.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

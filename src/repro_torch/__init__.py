@@ -2,9 +2,11 @@
 
 Laid out like ``repro``: ``core.acadl``, ``core.archs``, ``core.mapping``
 (copies of the framework-free modules), ``core.aidg`` (the AIDG builder,
-the max-plus engines, the DSE sweeps and the Explorer in PyTorch),
-``kernels`` (hand-written CUDA kernels with their plain PyTorch versions;
-sources in ``csrc/``) and ``models.config``.  ``convert`` carries an AIDG
+the max-plus engines, the DSE sweeps, the packed matrix and the Explorer
+in PyTorch), ``core.network`` (whole-network cells, copied),
+``kernels`` (hand-written CUDA kernels with their plain PyTorch versions,
+sources in ``csrc/``, and the reference's ``ops``/``ref`` API over them),
+``configs`` and ``models``.  ``convert`` carries an AIDG
 across from numpy.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

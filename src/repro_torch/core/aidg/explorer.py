@@ -18,15 +18,19 @@ batched sweeps on the device:
   baseline-relative cycles) vs. energy vs. an area-cost proxy;
   ``pareto_front`` extracts the deterministic non-dominated set.
 
-The Explorer runs one per-cell engine: ``"blocked"`` (max-plus Kleene
-closures, every ⊗ on the hand-written CUDA kernel), ``"wavefront"`` or
-``"scan"``.  The reference's default, ``"packed"``, and ``"condensed"``
-are not ported yet and raise ``NotImplementedError``; so does
-``refine(method="grad")``.  Callers pass ``engine=`` explicitly::
+The default engine, ``"packed"``, evaluates every cell of the matrix —
+the 10 operator cells and, with ``networks=``, the whole-network cells of
+``repro_torch.core.network`` — through one ``dse.PackedMatrix``: every
+cell chain-condensed, padded into shape buckets, and evaluated for all
+cells and all candidates together.  The per-cell engines remain:
+``"blocked"`` (max-plus Kleene closures, every ⊗ on the hand-written CUDA
+kernel), ``"wavefront"``, ``"condensed"`` and ``"scan"``.
+``refine(method="grad")`` (the soft family) is not ported yet and raises
+``NotImplementedError``::
 
     from repro_torch.core.aidg.explorer import (Explorer, DEFAULT_SPACE,
                                                 random_candidates)
-    ex = Explorer(engine="blocked")            # on the CUDA device
+    ex = Explorer(networks=True)               # packed, on the CUDA device
     res = ex.explore(random_candidates(DEFAULT_SPACE, 4096))
     print(res.frontier()[:3])
 """
@@ -43,23 +47,20 @@ import numpy as np
 from ...device import resolve_device
 from ..acadl.sim import build_trace, simulate
 from ..archs.energy import energy_model
-from .builder import (AIDG, CompiledAIDG, build_aidg,
-                      longest_path_fixed_point)
-from .dse import DSEProblem, make_problem, sweep
+from .builder import (AIDG, CompiledAIDG, LevelSchedule, build_aidg,
+                      condense_aidg, longest_path_fixed_point)
+from .dse import DSEProblem, PackSpec, PackedMatrix, make_problem, sweep
 from .energy import fold_dyn_energy
-from .maxplus import CONDENSED_TODO, DEFAULT_ENGINE, ENGINES
+from .maxplus import DEFAULT_ENGINE, ENGINES
 
-# the reference's engine names: every per-cell max-plus relaxation, plus
-# the matrix-packed single-dispatch evaluator (its default)
+# the Explorer's engine knob: every per-cell max-plus relaxation, plus the
+# matrix-packed evaluator (the default)
 EXPLORER_ENGINES = ENGINES + ("packed",)
 DEFAULT_EXPLORER_ENGINE = "packed"
-PACKED_TODO = ("engine 'packed' is not ported yet (ROADMAP.md, queue A: "
-               "PackedMatrix / condensed / soft family); pass "
-               "engine='blocked', 'wavefront' or 'scan'")
 
 __all__ = [
     "Scenario", "CompiledScenario", "default_scenarios", "compile_scenario",
-    "Knob", "DesignSpace",
+    "clear_scenario_cache", "scenario_cache_stats", "Knob", "DesignSpace",
     "DEFAULT_SPACE", "EXPLORER_ENGINES", "DEFAULT_EXPLORER_ENGINE",
     "grid_candidates", "random_candidates", "pareto_front", "resolve_cells",
     "Explorer", "ExplorationResult",
@@ -208,7 +209,14 @@ def default_scenarios() -> List[Scenario]:
 @dataclass
 class CompiledScenario:
     """Trace + AIDG + DSEProblem for one cell, built once and re-used by
-    every sweep (the graph is *structure*; θ only re-weights it)."""
+    every sweep (the graph is *structure*; θ only re-weights it).
+
+    Implements the **cell protocol** the :class:`Explorer` evaluates
+    against — ``projection`` / ``evaluate`` / ``accumulate_weights`` /
+    ``energy_coeffs`` / ``pack_spec`` / ``simulate`` / ``stats_row`` — so
+    operator cells and whole-network cells
+    (``repro_torch.core.network.CompiledNetwork``) are interchangeable
+    columns of the scenario matrix."""
 
     scenario: Scenario
     aidg: AIDG
@@ -234,6 +242,12 @@ class CompiledScenario:
     def compiled_aidg(self) -> CompiledAIDG:
         """The build-time compilation artifact shared by every sweep."""
         return self.problem.compiled_aidg
+
+    @property
+    def schedule(self) -> LevelSchedule:
+        """The build-time level schedule: n_levels sequential wavefront
+        steps instead of n."""
+        return self.compiled_aidg.schedule
 
     def projection(self, space: "DesignSpace"):
         """The (op -> knob, storage -> knob) gather maps for ``space``."""
@@ -272,6 +286,19 @@ class CompiledScenario:
         return (fold_dyn_energy(self.problem, proj, space.n, model),
                 model.static_pj)
 
+    def pack_spec(self, proj, n_knobs: Optional[int] = None) -> PackSpec:
+        """This cell's :class:`repro_torch.core.aidg.dse.PackSpec` — a
+        single problem, one run of one repetition, no overlap gates.  With
+        ``n_knobs`` the spec carries the folded energy coefficients;
+        without, energy is omitted (reported as 0)."""
+        if n_knobs is None:
+            return PackSpec.operator(self.problem, proj)
+        model = energy_model(self.arch)
+        return PackSpec.operator(
+            self.problem, proj,
+            edyn=fold_dyn_energy(self.problem, proj, n_knobs, model),
+            static_pj=model.static_pj)
+
     def simulate(self) -> int:
         """Cycle-accurate oracle: rebuild the AG from scratch (the builder's
         functional pre-execution mutates memory) and run the event
@@ -279,15 +306,32 @@ class CompiledScenario:
         ag, prog = self.scenario.build()
         return simulate(ag, prog).cycles
 
+    def stats_row(self) -> Dict[str, float]:
+        """Level-schedule statistics: node count vs critical depth, plus
+        the chain-condensed depth the packed engine loops over."""
+        s = self.schedule
+        c = condense_aidg(self.aidg).stats
+        return {"name": self.name, "n": s.n, "levels": s.n_levels,
+                "max_width": s.width,
+                "parallelism": round(s.parallelism, 2),
+                "kept": c["n_kept"],
+                "levels_condensed": c["levels_condensed"]}
+
 
 _AIDG_CACHE: Dict[Tuple, CompiledScenario] = {}
+_CACHE_STATS = {"hits": 0, "misses": 0}
 
 
 def compile_scenario(sc: Scenario, use_cache: bool = True) -> CompiledScenario:
     """(arch, workload) -> CompiledScenario, cached process-wide on
-    ``Scenario.key``."""
+    ``Scenario.key``; the cache counts hits and misses
+    (``scenario_cache_stats``) — a layer shape repeated across a network,
+    or across networks, compiles once."""
     if use_cache and sc.key in _AIDG_CACHE:
+        _CACHE_STATS["hits"] += 1
         return _AIDG_CACHE[sc.key]
+    if use_cache:
+        _CACHE_STATS["misses"] += 1
     ag, prog = sc.build()
     trace = build_trace(ag, prog)
     aidg = build_aidg(ag, trace)
@@ -297,6 +341,19 @@ def compile_scenario(sc: Scenario, use_cache: bool = True) -> CompiledScenario:
     if use_cache:
         _AIDG_CACHE[sc.key] = cs
     return cs
+
+
+def scenario_cache_stats() -> Dict[str, int]:
+    """Process-wide AIDG-cache counters: ``{"hits": ..., "misses": ...}``
+    (uncached builds count neither)."""
+    return dict(_CACHE_STATS)
+
+
+def clear_scenario_cache() -> None:
+    """Drop every cached CompiledScenario and zero the hit/miss counters."""
+    _AIDG_CACHE.clear()
+    _CACHE_STATS["hits"] = 0
+    _CACHE_STATS["misses"] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -523,33 +580,48 @@ class Explorer:
     """The batched multi-architecture DSE engine on one device.
 
     Compiles every scenario once (AIDG cache + level schedule), projects
-    shared knob vectors to per-scenario θ, and evaluates candidate batches
-    cell by cell, each cell one batched sweep over the candidates.
+    shared knob vectors to per-scenario θ, and evaluates candidate batches.
 
-    ``engine``: ``"blocked"`` (max-plus Kleene-closure blocks, every ⊗ on
-    the hand-written kernel), ``"wavefront"`` or ``"scan"``; ``"packed"``
-    (the reference's default) and ``"condensed"`` raise
-    ``NotImplementedError``.  ``device``: ``cuda`` unless the caller names
+    ``engine``: ``"packed"`` (the default) runs the whole matrix through
+    one :class:`repro_torch.core.aidg.dse.PackedMatrix` — every cell
+    chain-condensed, padded into shape buckets, all cells x all candidates
+    together; the per-cell engines evaluate one batched sweep per cell:
+    ``"blocked"`` (max-plus Kleene-closure blocks, every ⊗ on the
+    hand-written kernel), ``"wavefront"``, ``"condensed"`` or ``"scan"``.
+
+    ``networks=True`` appends the whole-network matrix
+    (``repro_torch.core.network.default_network_scenarios``); a model name
+    or a list of names appends just those networks.  Each added cell is a
+    full DNN lowered layer by layer onto one architecture and scored by
+    end-to-end latency.  ``device``: ``cuda`` unless the caller names
     another; without a card and without ``device`` it raises."""
 
     def __init__(self, scenarios: Optional[Sequence[Scenario]] = None,
                  space: DesignSpace = DEFAULT_SPACE, n_iters: int = 2,
                  use_cache: bool = True,
-                 engine: str = DEFAULT_EXPLORER_ENGINE, device=None):
+                 engine: str = DEFAULT_EXPLORER_ENGINE, networks=False,
+                 device=None):
         if engine not in EXPLORER_ENGINES:
             raise ValueError(f"unknown engine {engine!r}; "
                              f"choose from {EXPLORER_ENGINES}")
-        if engine == "packed":
-            raise NotImplementedError(PACKED_TODO)
-        if engine == "condensed":
-            raise NotImplementedError(CONDENSED_TODO)
         self.device = resolve_device(device)
         self.space = space
         self.n_iters = n_iters
         self.engine = engine
+        self._packed: Optional[PackedMatrix] = None
         cells = list(default_scenarios() if scenarios is None else scenarios)
+        if networks:
+            from ..network import default_network_scenarios
+            # True -> the full default network matrix; names -> just those
+            # networks (still every mapping arch); a bare string would
+            # iterate its characters, so wrap it
+            if isinstance(networks, str):
+                networks = [networks]
+            cells += default_network_scenarios(
+                networks=None if networks is True else networks)
         self.compiled: List[CompiledScenario] = [
-            compile_scenario(s, use_cache) for s in cells]
+            s.compile(use_cache) if hasattr(s, "compile")
+            else compile_scenario(s, use_cache) for s in cells]
         self._projections = [cs.projection(space) for cs in self.compiled]
         self._weights: Optional[np.ndarray] = None
         self._energy_arrays_cache = None
@@ -601,9 +673,22 @@ class Explorer:
 
     # -- batched evaluation -------------------------------------------------
 
+    def packed_matrix(self) -> PackedMatrix:
+        """The matrix-packed evaluator over all cells on this explorer's
+        device (built lazily from every cell's ``pack_spec``, energy
+        coefficients folded in; cached)."""
+        if self._packed is None:
+            specs = [cs.pack_spec(proj, n_knobs=self.space.n) for cs, proj
+                     in zip(self.compiled, self._projections)]
+            self._packed = PackedMatrix.build(specs, self.space.n,
+                                              n_iters=self.n_iters,
+                                              device=self.device)
+        return self._packed
+
     def _energy_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
         """Per-cell folded energy coefficients ``((S, n_knobs + 1) dynamic
-        pJ per knob, (S,) static pJ per cycle)``."""
+        pJ per knob, (S,) static pJ per cycle)`` — the closed form the
+        per-cell engines apply (the packed engine folds the same)."""
         if self._energy_arrays_cache is None:
             coeffs = [cs.energy_coeffs(self.space, proj) for cs, proj
                       in zip(self.compiled, self._projections)]
@@ -613,12 +698,21 @@ class Explorer:
         return self._energy_arrays_cache
 
     def evaluate(self, knob_thetas: np.ndarray,
-                 chunk: Optional[int] = None) -> np.ndarray:
-        """(B, n_knobs) candidates -> (B, S) estimated cycles: one batched
-        sweep per cell over the cached device structure."""
+                 chunk: Optional[int] = None, sharded: bool = False,
+                 n_devices: Optional[int] = None) -> np.ndarray:
+        """(B, n_knobs) candidates -> (B, S) estimated cycles: the packed
+        matrix, or one batched sweep per cell for the per-cell engines.
+        ``sharded`` (several devices) is not ported yet."""
         kt = np.asarray(knob_thetas, np.float32)
         if kt.ndim == 1:
             kt = kt[None, :]
+        if self.engine == "packed":
+            return self.packed_matrix().evaluate(kt, chunk=chunk,
+                                                 sharded=sharded,
+                                                 n_devices=n_devices)
+        if sharded:
+            raise ValueError("sharded evaluation requires engine='packed' "
+                             f"(this explorer uses {self.engine!r})")
         cols = [cs.evaluate(self.space, kt, proj, n_iters=self.n_iters,
                             chunk=chunk, engine=self.engine,
                             device=self.device)
@@ -626,15 +720,21 @@ class Explorer:
         return np.stack(cols, axis=1)
 
     def evaluate_full(self, knob_thetas: np.ndarray,
-                      chunk: Optional[int] = None
+                      chunk: Optional[int] = None, sharded: bool = False,
+                      n_devices: Optional[int] = None
                       ) -> Tuple[np.ndarray, np.ndarray]:
         """(B, n_knobs) candidates -> ``((B, S) cycles, (B, S) energy
-        pJ)``: the closed-form ``edyn @ (1/θ) + P_static · cycles`` applied
-        to the per-cell cycles."""
+        pJ)``.  The packed engine computes both in one evaluation; the
+        per-cell engines apply the closed form ``edyn @ (1/θ) + P_static ·
+        cycles`` to their cycles."""
         kt = np.asarray(knob_thetas, np.float32)
         if kt.ndim == 1:
             kt = kt[None, :]
-        cycles = self.evaluate(kt, chunk=chunk)
+        if self.engine == "packed":
+            return self.packed_matrix().evaluate_full(
+                kt, chunk=chunk, sharded=sharded, n_devices=n_devices)
+        cycles = self.evaluate(kt, chunk=chunk, sharded=sharded,
+                               n_devices=n_devices)
         edyn, pstat = self._energy_arrays()
         inv = 1.0 / np.concatenate(
             [kt.astype(np.float64), np.ones((kt.shape[0], 1))], axis=1)
@@ -665,7 +765,8 @@ class Explorer:
         """Refine the incumbent design by deterministic coordinate descent:
         sweep one knob at a time over ``points`` (default 9) log-spaced
         levels (others fixed), keep the argmin, cycle ``rounds`` (default
-        2) times; evaluates ``(points + 1) x n_knobs x rounds`` candidates.
+        2) times; evaluates ``(points + 1) x n_knobs x rounds`` candidates
+        through the explorer's engine (the packed matrix by default).
 
         ``objective``: 'product' minimizes latency * cost; 'latency'
         ignores cost; 'energy' minimizes normalized energy; 'edp' minimizes
@@ -677,7 +778,7 @@ class Explorer:
                 f"or 'edp', got {objective!r}")
         if method == "grad":
             raise NotImplementedError(
-                "method='grad' is not ported yet (ROADMAP.md, queue A: soft "
+                "method='grad' is not ported yet (ROADMAP.md, queue A7: soft "
                 "family and gradients)")
         if method != "coord":
             raise ValueError(f"method must be 'coord' or 'grad', "

@@ -15,6 +15,11 @@ in the same rank.
   t_b = M*_b ⊗ h_b.  Every ⊗ goes through ``repro_torch.kernels.maxplus``:
   the hand-written CUDA kernel on CUDA tensors, its plain version on CPU
   tensors.
+* ``longest_path_condensed`` — the wavefront over the chain-condensed
+  graph (``builder.condense_aidg``): one loop step per *unit* level,
+  absorbed chain interiors rebuilt from an exact prefix sum, and the
+  affine chains inside a window resolved by ``affine_scan``, a log-step
+  scan in the reference's ``lax.associative_scan`` combine order.
 
 ``fixed_point_torch(engine=...)`` selects the relaxation used between
 storage-queueing folds; ``fixed_point_batch`` takes raw batched latencies.
@@ -22,8 +27,7 @@ The storage request-slot queueing (arrival-ordered service) is
 ``slot_queue_scan``.  Sorts are ``stable=True`` throughout: queue tie-breaks
 must match the reference's stable ``argsort``.
 
-The ``condensed`` engine and the smooth (τ-soft) family are not ported
-yet; asking for ``condensed`` raises ``NotImplementedError``.
+The smooth (τ-soft) family is not ported yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ import torch
 from ...device import resolve_device
 from ...kernels.maxplus import (maxplus_matmul, maxplus_matmul_torch,
                                 maxplus_matvec)
-from .builder import AIDG, CompiledAIDG, NEG, compile_aidg
+from .builder import AIDG, CompiledAIDG, CondensedAIDG, NEG, compile_aidg, \
+    condense_aidg
 
 __all__ = [
     "ENGINES",
@@ -44,6 +49,10 @@ __all__ = [
     "longest_path_wavefront",
     "longest_path_scan",
     "longest_path_blocked",
+    "longest_path_condensed",
+    "condensed_prefix",
+    "condensed_scan",
+    "affine_scan",
     "slot_queue_scan",
     "fixed_point_torch",
     "fixed_point_batch",
@@ -52,11 +61,8 @@ __all__ = [
     "Solver",
 ]
 
-# the reference's engine names; "condensed" waits for the packed slice
 ENGINES = ("wavefront", "scan", "blocked", "condensed")
 DEFAULT_ENGINE = "wavefront"
-CONDENSED_TODO = ("engine 'condensed' is not ported yet (ROADMAP.md, queue "
-                  "A: PackedMatrix / condensed / soft family)")
 
 AIDGLike = Union[AIDG, CompiledAIDG]
 Tensor = torch.Tensor
@@ -73,6 +79,17 @@ def _batched(x, default: np.ndarray, device: torch.device
     v = torch.as_tensor(default if x is None else x, dtype=torch.float32,
                         device=device)
     return (v[None, :], True) if v.dim() == 1 else (v, False)
+
+
+def _pair(work, base, a: AIDG, device: torch.device
+          ) -> Tuple[Tensor, Tensor, bool]:
+    """``work`` and ``base`` (or the AIDG's own) as (B, n) tensors with one
+    shared batch size, and whether ``work`` was 1-D."""
+    w, one = _batched(work, a.work, device)
+    b, _ = _batched(base, a.base, device)
+    B = max(w.shape[0], b.shape[0])
+    return (w.expand(B, -1).contiguous(), b.expand(B, -1).contiguous(),
+            one)
 
 
 # ---------------------------------------------------------------------------
@@ -102,8 +119,7 @@ def longest_path_scan(aidg: AIDGLike, work=None, base=None,
     against."""
     dev = resolve_device(device)
     a = _as_compiled(aidg).aidg
-    w, one = _batched(work, a.work, dev)
-    b, _ = _batched(base, a.base, dev)
+    w, b, one = _pair(work, base, a, dev)
     t = _scan_impl(w, b, torch.as_tensor(a.preds, dtype=torch.long,
                                          device=dev),
                    torch.as_tensor(a.pred_extra, device=dev))
@@ -152,10 +168,175 @@ def longest_path_wavefront(aidg: AIDGLike, work=None, base=None,
     dev = resolve_device(device)
     ca = _as_compiled(aidg)
     a = ca.aidg
-    w, one = _batched(work, a.work, dev)
-    b, _ = _batched(base, a.base, dev)
-    solver = Solver(ca, "wavefront", dev)
-    t = solver.relax_for(w)(b)
+    w, b, one = _pair(work, base, a, dev)
+    t = Solver(ca, "wavefront", dev).relax_for(w)(b)
+    return t[0] if one else t
+
+
+# ---------------------------------------------------------------------------
+# condensed wavefront (chain super-edges; sequential depth = the CONDENSED
+# critical depth)
+# ---------------------------------------------------------------------------
+
+
+def _interleave(even: Tensor, odd: Tensor) -> Tensor:
+    """[e0, o0, e1, o1, ...] along the last axis (len(even) - len(odd) is
+    0 or 1)."""
+    out = even.new_empty(even.shape[:-1] + (even.shape[-1] + odd.shape[-1],))
+    out[..., 0::2] = even
+    out[..., 1::2] = odd
+    return out
+
+
+def _affine_op(va: Tensor, ha: Tensor, vb: Tensor, hb: Tensor
+               ) -> Tuple[Tensor, Tensor]:
+    """(v₁, h₁) ∘ (v₂, h₂) = (max(v₁ + v₂, NEG), max(h₁ + v₂, h₂))."""
+    return torch.clamp_min(va + vb, NEG), torch.maximum(ha + vb, hb)
+
+
+def affine_scan(v: Tensor, h: Tensor) -> Tuple[Tensor, Tensor]:
+    """Inclusive scan of the max-plus affine composition along the last
+    axis, in log-many steps, with the combine order of the reference's
+    ``lax.associative_scan``: combine adjacent pairs, scan the half-length
+    result recursively, then fill the even positions — so every partial
+    sum is formed as the reference forms it."""
+    n = v.shape[-1]
+    if n < 2:
+        return v, h
+    rv, rh = _affine_op(v[..., 0:n - 1:2], h[..., 0:n - 1:2], v[..., 1::2],
+                        h[..., 1::2])
+    ov, oh = affine_scan(rv, rh)
+    if n % 2 == 0:
+        ev, eh = _affine_op(ov[..., :-1], oh[..., :-1], v[..., 2::2],
+                            h[..., 2::2])
+    else:
+        ev, eh = _affine_op(ov, oh, v[..., 2::2], h[..., 2::2])
+    ev = torch.cat([v[..., :1], ev], dim=-1)
+    eh = torch.cat([h[..., :1], eh], dim=-1)
+    return _interleave(ev, ov), _interleave(eh, oh)
+
+
+def condensed_prefix(cond: CondensedAIDG, w: Tensor) -> Tensor:
+    """(B, n_ab) inclusive prefix weights of every absorbed node: the
+    θ-reweighted super-edge sum ``Σ_prefix (edge extra + w_i)`` as one
+    ``cumsum`` and two gathers, for (B, n) work ``w``."""
+    return _prefix(_CondArrays(cond, w.device), w)
+
+
+def _prefix(A: "_CondArrays", w: Tensor) -> Tensor:
+    aw = w[:, A.absorbed] + A.ab_const
+    tot0 = torch.cat([torch.zeros_like(aw[:, :1]),
+                      torch.cumsum(aw, dim=1)], dim=1)
+    return tot0[:, 1:] - tot0[:, A.ab_segstart]
+
+
+def condensed_scan(w_perm: Tensor, b_perm: Tensor, extra_lv: Tensor,
+                   v_lv: Tensor, preds_lv: Tensor, starts: Tuple[int, ...],
+                   has_chains: bool = True) -> Tensor:
+    """The condensed wavefront for a batch: one loop step per UNIT level.
+    Each step gathers the already-final cross-unit predecessor times,
+    reduces them with the window's base, then resolves every affine chain
+    inside the window with ``affine_scan``.  ``w_perm``/``b_perm`` (B, NK)
+    in the level-major permuted kept layout; ``extra_lv`` (B or 1, NK + W,
+    P) and ``v_lv`` (B, NK + W) the θ-reweighted edge and coupling weights
+    (NEG = chain break); ``has_chains=False`` skips the affine scan."""
+    B, NK = w_perm.shape
+    W = preds_lv.shape[0] - NK
+    P = preds_lv.shape[1]
+    dev = w_perm.device
+    work_pad = torch.cat([w_perm, torch.zeros((B, W), dtype=torch.float32,
+                                              device=dev)], dim=1)
+    base_pad = torch.cat([b_perm, torch.full((B, W), NEG,
+                                             dtype=torch.float32,
+                                             device=dev)], dim=1)
+    valid = preds_lv >= 0
+    idx = preds_lv.clamp(min=0)
+    t = torch.zeros((B, NK + W), dtype=torch.float32, device=dev)
+    for start in starts:
+        s = slice(start, start + W)
+        r = base_pad[:, s]
+        if P:
+            vals = torch.where(valid[s], t[:, idx[s]] + extra_lv[:, s], NEG)
+            r = torch.maximum(r, vals.amax(dim=2))
+        if has_chains:
+            _, tw = affine_scan(v_lv[:, s], r + work_pad[:, s])
+        else:
+            tw = r + work_pad[:, s]
+        t[:, s] = tw
+    return t[:, :NK]
+
+
+class _CondArrays:
+    """The θ-independent arrays of one CondensedAIDG on one device."""
+
+    def __init__(self, cond: CondensedAIDG, device: torch.device):
+        T = lambda x, dt=None: torch.as_tensor(np.asarray(x), dtype=dt,
+                                               device=device)
+        L = torch.long
+        self.cond = cond
+        self.kept_perm = T(cond.kept_perm, L)
+        self.absorbed = T(cond.absorbed, L)
+        self.ab_const = T(cond.ab_const, torch.float32)
+        self.ab_segstart = T(cond.ab_segstart, L)
+        self.ab_anchor_perm = T(cond.ab_anchor_perm, L)
+        self.vc = T(cond.v_const_lv, torch.float32)
+        self.const = T(cond.const_lv, torch.float32)
+        self.pidx = T(cond.pidx_lv, L)
+        self.vp = T(cond.v_pidx_lv, L)
+        self.preds = T(cond.preds_lv, L)
+        self.starts = tuple(int(x) for x in cond.schedule.starts)
+        self.width = cond.schedule.width
+        self.has_chains = cond.stats["n_coupled"] > 0
+
+
+def _condensed_relax_for(A: _CondArrays, w: Tensor
+                         ) -> Callable[[Tensor], Tensor]:
+    """(B, n) work -> the condensed relaxation ``base (B, n) -> t (B, n)``:
+    kept nodes by the unit-level wavefront with in-window affine chains,
+    absorbed nodes rebuilt as anchor + exact prefix sum.  Everything that
+    depends on work only (prefix sums, edge and coupling weights) is
+    computed here once."""
+    cond = A.cond
+    B = w.shape[0]
+    wk = w[:, A.kept_perm]
+    w_pad = torch.cat([wk, torch.zeros((B, A.width), dtype=torch.float32,
+                                       device=w.device)], dim=1)
+    coupled = A.vc > NEG / 2
+    prefix = None
+    if cond.n_absorbed:
+        prefix = _prefix(A, w)
+        extra = A.const + torch.where(A.pidx >= 0,
+                                      prefix[:, A.pidx.clamp(min=0)], 0.0)
+        vpre = torch.where(A.vp >= 0, prefix[:, A.vp.clamp(min=0)], 0.0)
+    else:
+        extra = A.const[None]
+        vpre = 0.0
+    v_lv = torch.where(coupled, A.vc + vpre + w_pad, NEG)
+
+    def relax(b: Tensor) -> Tensor:
+        tk = condensed_scan(wk, b[:, A.kept_perm], extra, v_lv, A.preds,
+                            A.starts, has_chains=A.has_chains)
+        t = torch.zeros((B, cond.n), dtype=torch.float32, device=w.device)
+        t[:, A.kept_perm] = tk
+        if prefix is not None:
+            t[:, A.absorbed] = tk[:, A.ab_anchor_perm] + prefix
+        return t
+
+    return relax
+
+
+def longest_path_condensed(aidg: AIDGLike, work=None, base=None,
+                           device=None) -> Tensor:
+    """Exact longest path in ``levels_condensed`` sequential steps: chain
+    interiors folded into θ-parametric super-edges, so chain-dominated
+    graphs lose most of their loop length.  Identical to
+    ``longest_path_wavefront`` for any work vector with the ≥ 1-cycle
+    floor."""
+    dev = resolve_device(device)
+    ca = _as_compiled(aidg)
+    a = ca.aidg
+    w, b, one = _pair(work, base, a, dev)
+    t = Solver(ca, "condensed", dev).relax_for(w)(b)
     return t[0] if one else t
 
 
@@ -269,8 +450,7 @@ def longest_path_blocked(aidg: AIDGLike, block: int = 128, work=None,
     dev = resolve_device(device)
     ca = _as_compiled(aidg)
     a = ca.aidg
-    w, one = _batched(work, a.work, dev)
-    b, _ = _batched(base, a.base, dev)
+    w, b, one = _pair(work, base, a, dev)
     t = Solver(ca, "blocked", dev, block=block).relax_for(w)(b)
     return t[0] if one else t
 
@@ -323,8 +503,6 @@ class Solver:
 
     def __init__(self, ca: CompiledAIDG, engine: str, device,
                  block: int = 128):
-        if engine == "condensed":
-            raise NotImplementedError(CONDENSED_TODO)
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; choose from "
                              f"{ENGINES}")
@@ -341,6 +519,8 @@ class Solver:
                         s.width)
         elif engine == "scan":
             self._scan = (T(a.preds, torch.long), T(a.pred_extra))
+        elif engine == "condensed":
+            self._cond = _CondArrays(condense_aidg(a), dev)
         else:
             Dd, Ds, fs, fd, fw = _blocked_structure(ca, block)
             self._bl = (T(Dd), T(Ds), T(fs, torch.long), T(fd, torch.long),
@@ -363,6 +543,8 @@ class Solver:
         if self.engine == "scan":
             preds, extra = self._scan
             return lambda b: _scan_impl(work, b, preds, extra)
+        if self.engine == "condensed":
+            return _condensed_relax_for(self._cond, work)
         Dd, Ds, fs, fd, fw = self._bl
         block = self.block
         nb, B = Dd.shape[0], work.shape[0]

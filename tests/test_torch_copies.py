@@ -13,7 +13,11 @@ JAX reference package.
 (e) the LM slice: the ten config modules equal the reference's, the
     reference's parameter pytree carries across (``lm_params_from_numpy``)
     with every leaf checked, and ``Model.logits`` runs with neither
-    ``jax`` nor ``repro`` loaded.
+    ``jax`` nor ``repro`` loaded;
+(f) the packed slice: the copied ``core/network`` tables and layer graphs
+    equal the reference's, and every operator and network cell's
+    CompiledAIDG / CondensedAIDG (with its prologue boundary) and layer
+    stack are array-equal to the reference's.
 """
 
 import ast
@@ -31,14 +35,19 @@ import torch
 
 import repro.configs as ref_configs
 import repro_torch.configs as port_configs
+import repro.core.network as ref_net
 from repro.core.aidg import explorer as ref_ex
+from repro.core.aidg.builder import condense_aidg as ref_condense
+from repro.core.network import lowering as ref_lowering
 from repro.models import get_model as ref_get_model
+import repro_torch.core.network as port_net
 from repro_torch.convert import (ARRAY_FIELDS, DICT_FIELDS, aidg_from_numpy,
                                  cast_params, lm_params_from_numpy)
 from repro_torch.core.aidg import builder as port_builder
 from repro_torch.core.aidg import dse as port_dse
 from repro_torch.core.aidg import explorer as port_ex
 from repro_torch.core.aidg import maxplus as port_mp
+from repro_torch.core.network import lowering as port_lowering
 from repro_torch.models import get_model as port_get_model
 from repro_torch.models import lm as port_lm
 
@@ -186,6 +195,10 @@ def test_port_runs_without_jax_or_repro_loaded():
         "device='cpu')\n"
         "res = ex.explore(E.random_candidates(E.DEFAULT_SPACE, 4))\n"
         "assert res.cycles.shape == (4, 2) and len(res.pareto) >= 1\n"
+        "net = E.Explorer(networks='olmo_1b', device='cpu')\n"
+        "assert net.engine == 'packed' and len(net.scenario_names) == 16\n"
+        "res = net.explore(E.random_candidates(E.DEFAULT_SPACE, 4))\n"
+        "assert res.cycles.shape == (4, 16) and len(res.pareto) >= 1\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -342,3 +355,98 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_card(
         whisper.init_params(0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.abstract_params()
+
+
+# ---------------------------------------------------------------------------
+# (f) the packed slice: network tables, condensed arrays, layer stacks
+# ---------------------------------------------------------------------------
+
+_COND_ARRAYS = ("kept", "kept_rank", "absorbed", "ab_anchor", "ab_const",
+                "ab_segstart", "preds_lv", "const_lv", "pidx_lv",
+                "v_const_lv", "v_pidx_lv", "kept_perm", "ab_anchor_perm")
+
+
+def _assert_same_condensed(r, p, what):
+    assert (r.n_kept, r.boundary) == (p.n_kept, p.boundary), what
+    for k in _COND_ARRAYS:
+        _assert_same_array(getattr(r, k), getattr(p, k), f"{what}: {k}")
+    for k in ("depth", "level_nodes", "order", "rank", "starts"):
+        _assert_same_array(getattr(r.schedule, k), getattr(p.schedule, k),
+                           f"{what}: schedule.{k}")
+    assert r.stats == p.stats, what
+
+
+@pytest.mark.parametrize("i", range(len(REF_SCEN)), ids=IDS)
+def test_operator_cell_condensed_arrays_match_reference(i):
+    ref = ref_ex.compile_scenario(REF_SCEN[i])
+    port = port_ex.compile_scenario(PORT_SCEN[i])
+    _assert_same_condensed(ref_condense(ref.aidg),
+                           port_builder.condense_aidg(port.aidg), IDS[i])
+    assert ref.stats_row() == port.stats_row()
+
+
+def test_network_tables_equal_reference():
+    assert port_net.NETWORKS == ref_net.NETWORKS
+    assert port_net.NETWORK_ARCHS == ref_net.NETWORK_ARCHS
+    assert port_net.ARCH_TILE_TOL == ref_net.ARCH_TILE_TOL
+    assert port_net.ARCH_CAPACITY_WORDS == ref_net.ARCH_CAPACITY_WORDS
+    assert asdict(port_net.NETWORK_SHAPE) == asdict(ref_net.NETWORK_SHAPE)
+    for arch in ref_net.NETWORK_ARCHS:
+        assert port_net.lowerable_ops(arch) == ref_net.lowerable_ops(arch)
+    assert list(port_lowering._TILES) == list(ref_lowering._TILES)
+    for key, (rf, rmacs, rwords) in ref_lowering._TILES.items():
+        pf, pmacs, pwords = port_lowering._TILES[key]
+        assert (pmacs, pwords) == (rmacs, rwords), key
+        assert pf().params[1:] == rf().params[1:], key
+    ref_cells = ref_net.default_network_scenarios()
+    port_cells = port_net.default_network_scenarios()
+    assert [(c.name, c.mode) for c in port_cells] == \
+        [(c.name, c.mode) for c in ref_cells]
+    assert len(port_cells) == 21
+    # the layer graph of every config, in execution order
+    for arch in ref_configs.all_arch_ids():
+        r = ref_net.extract_layer_graph(ref_configs.get_config(arch))
+        p = port_net.extract_layer_graph(port_configs.get_config(arch))
+        assert [(x.tag, x.unique) for x in p.instances] == \
+            [(x.tag, x.unique) for x in r.instances], arch
+        assert [asdict(c) for c in p.unique] == \
+            [asdict(c) for c in r.unique], arch
+        assert p.runs == r.runs and p.ops == r.ops, arch
+
+
+_NET_CELLS = ref_net.default_network_scenarios()
+
+
+@pytest.mark.parametrize("i", range(len(_NET_CELLS)),
+                         ids=[c.name for c in _NET_CELLS])
+def test_network_cell_arrays_match_reference(i):
+    """Every tile program of the cell: AIDG, CompiledAIDG and the
+    CondensedAIDG the packed matrix builds (prologue boundary included);
+    then the cell's layer stack and its pack spec's composition arrays."""
+    rs = _NET_CELLS[i]
+    ref = rs.compile()
+    port = port_net.NetworkScenario(rs.arch, rs.network).compile()
+    assert port.name == ref.name
+    assert len(port.cells) == len(ref.cells)
+    for k, (rc, pc) in enumerate(zip(ref.cells, port.cells)):
+        what = f"{ref.name} tile {k}"
+        _assert_same_aidg(rc.aidg, pc.aidg)
+        _assert_same_compiled(rc.compiled_aidg, pc.compiled_aidg)
+        assert rc.baseline == pc.baseline, what
+        kb = int(ref.stack.prologue_len[k])
+        _assert_same_condensed(ref_condense(rc.aidg, kb or None),
+                               port_builder.condense_aidg(pc.aidg,
+                                                          kb or None), what)
+    for k in ("prologue_len", "run_layer", "run_reps", "fits_within",
+              "fits_between"):
+        _assert_same_array(getattr(ref.stack, k), getattr(port.stack, k),
+                           f"{ref.name}: stack.{k}")
+    assert np.array_equal(port.reps_per_layer, ref.reps_per_layer)
+    assert port.stats_row() == ref.stats_row()
+    rp = ref.pack_spec(ref.projection(ref_ex.DEFAULT_SPACE), n_knobs=5)
+    pp = port.pack_spec(port.projection(port_ex.DEFAULT_SPACE), n_knobs=5)
+    for k in ("prologue_len", "run_layer", "run_reps", "fits_within",
+              "fits_between"):
+        _assert_same_array(getattr(rp, k), getattr(pp, k), k)
+    assert all(np.array_equal(a, b) for a, b in zip(rp.edyn, pp.edyn))
+    assert rp.static_pj == pp.static_pj

@@ -1,8 +1,8 @@
 """Card-only tests of the port: each hand-written kernel (max-plus,
-flash attention, selective scan) against its plain PyTorch version on the
-card, the blocked Explorer path and a small LM forward through the
-kernels.  Every test is marked ``cuda`` and skips where no card is
-present.
+flash attention, selective scan, systolic GEMM) against its plain PyTorch
+version on the card, the blocked and packed Explorer paths, the
+``kernels.ops`` wrappers and a small LM forward through the kernels.
+Every test is marked ``cuda`` and skips where no card is present.
 
 This file imports neither ``jax`` nor ``repro``, so it runs on a machine
 that has only PyTorch:
@@ -13,7 +13,9 @@ that has only PyTorch:
 package.)  Max-plus ⊗ is exact — one float32 add, then a max — so the
 kernel must equal the plain version bit for bit (``torch.equal``); the
 attention and scan kernels are held to the reference's own kernel-test
-tolerances, with TF32 off for the float32 plain versions.
+tolerances, with TF32 off for the float32 plain versions; the GEMM is
+held element by element within ``systolic_gemm.error_bound`` (float32
+summation order, and one bf16 rounding each side for bf16 outputs).
 """
 
 from dataclasses import replace
@@ -26,7 +28,9 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core.aidg import explorer as port_ex
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import maxplus as K
+from repro_torch.kernels import ops
 from repro_torch.kernels import selective_scan as SS
+from repro_torch.kernels import systolic_gemm as SG
 from repro_torch.models import get_model
 from repro_torch.models import lm as port_lm
 
@@ -254,3 +258,96 @@ def test_lm_forward_on_card_goes_through_the_kernels(card, exact_f32):
     assert SS.PLAIN_CALLS["selective_scan"] == 0
     plain = port_lm.forward(params, cfg, toks)
     torch.testing.assert_close(kern, plain, atol=3e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 53, 29), (64, 200, 96),
+                                   (300, 256, 264)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", [0, 1])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_systolic_gemm_matches_plain(card, m, k, n, dtype, activation,
+                                            out_dtype):
+    """Ragged shapes (element-by-element loads) and 16-byte-aligned ones
+    (vector loads), one and several output tiles."""
+    rng = np.random.default_rng(m * k + n)
+    a, b = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            .to(dtype).to(card) for s in ((m, k), (k, n)))
+    launches = SG.LAUNCHES["systolic_gemm"]
+    out = SG.systolic_gemm(a, b, activation=activation, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert SG.LAUNCHES["systolic_gemm"] == launches + 1
+    assert out.dtype == out_dtype and out.shape == (m, n)
+    want = SG.systolic_gemm_torch(a, b, activation=activation,
+                                  out_dtype=out_dtype)
+    err = (out.float() - want.float()).abs()
+    bound = SG.error_bound(a, b, want)
+    assert bool((err <= bound).all()), (
+        f"{int((err > bound).sum())} elements beyond the bound, max |err| "
+        f"{float(err.max()):.3e}")
+    if activation == 1:
+        assert float(out.float().min()) >= 0.0
+
+
+def test_systolic_gemm_rejects_what_it_cannot_take(card):
+    a = torch.zeros((8, 16), device=card)
+    b = torch.zeros((16, 4), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        SG.systolic_gemm(a, torch.zeros((4, 16), device=card).t())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        SG.systolic_gemm(a, b.cpu())
+    with pytest.raises(TypeError):
+        SG.systolic_gemm(a, b.bfloat16())
+    with pytest.raises(TypeError):
+        SG.systolic_gemm(a.double(), b.double())
+    with pytest.raises(ValueError, match="not \\(M, K\\)"):
+        SG.systolic_gemm(a, a)
+    with pytest.raises(ValueError, match="activation"):
+        SG.systolic_gemm(a, b, activation=2)
+
+
+def test_ops_wrappers_launch_kernels_on_card(card, exact_f32):
+    """``kernels.ops`` on CUDA tensors launches the kernels, never a plain
+    version -- non-causal ragged keys included (the reference drops to its
+    plain version there)."""
+    rng = np.random.default_rng(5)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)
+                                    ).to(card)
+    for mod in (K, FA, SS, SG):
+        mod.reset_counts()
+    a, b = f(37, 53), f(53, 29)
+    assert torch.equal(ops.maxplus_matmul(a, b).cpu(),
+                       K.maxplus_matmul_torch(a.cpu()[None], b.cpu()[None])[0])
+    g = ops.gemm(a, b, activation=1)
+    assert bool((g - SG.systolic_gemm_torch(a, b, activation=1)).abs().le(
+        SG.error_bound(a, b, g)).all())
+    q, kk, v = f(2, 3, 100, 64), f(2, 3, 77, 64), f(2, 3, 77, 32)
+    o = ops.flash_attention(q, kk, v, causal=False)
+    assert o.shape == (2, 3, 100, 32)
+    want = FA.flash_attention_torch(q.reshape(6, 100, 64),
+                                    kk.reshape(6, 77, 64),
+                                    v.reshape(6, 77, 32), causal=False)
+    torch.testing.assert_close(o.reshape(6, 100, 32), want, atol=2e-4,
+                               rtol=1e-3)
+    x, dt = f(2, 33, 100) * 0.5, f(2, 33, 100).abs() * 0.1
+    bb, cc = f(2, 33, 8), f(2, 33, 8)
+    aa, dd = -(f(100, 8).abs() + 0.1), f(100)
+    torch.testing.assert_close(ops.selective_scan(x, dt, bb, cc, aa, dd),
+                               SS.selective_scan_torch(x, dt, bb, cc, aa, dd),
+                               **SCAN_TOL)
+    for mod, name in ((K, "maxplus_matmul"), (FA, "flash_attention"),
+                      (SS, "selective_scan"), (SG, "systolic_gemm")):
+        assert mod.LAUNCHES[name] == 1, name
+        assert mod.PLAIN_CALLS[name] == 0, name
+
+
+def test_packed_explorer_on_card_matches_golden(card):
+    """The default Explorer (engine "packed") on the card: θ = 1 equals the
+    golden cycles exactly, and random candidates agree with the CPU run of
+    the same code."""
+    ex = port_ex.Explorer(device=card)
+    assert ex.engine == "packed"
+    assert ex.baselines.tolist() == GOLDEN_THETA1_CYCLES
+    cand = port_ex.random_candidates(port_ex.DEFAULT_SPACE, 16, seed=3)
+    gpu = ex.evaluate(cand)
+    cpu = port_ex.Explorer(device="cpu").evaluate(cand)
+    np.testing.assert_allclose(gpu, cpu, rtol=1e-5)

@@ -239,8 +239,11 @@ def test_fixed_point_single_vector_keeps_rank():
 
 
 def test_condensed_engine_not_ported_yet():
-    _, port = _pair("tpu_v5e/gemm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_mp.fixed_point_torch(port, engine="condensed", device=CPU)
+    """The condensed engine is ported now: its fixed point equals the
+    reference's node for node at θ = 1; unknown engines still raise."""
+    ref, port = _pair("tpu_v5e/gemm")
+    t = port_mp.fixed_point_torch(port, engine="condensed", device=CPU)
+    assert np.array_equal(
+        t.numpy(), np.asarray(ref_mp.fixed_point_jax(ref, engine="condensed")))
     with pytest.raises(ValueError, match="unknown engine"):
         port_mp.fixed_point_torch(port, engine="nope", device=CPU)

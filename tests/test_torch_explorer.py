@@ -151,13 +151,18 @@ def test_blocked_path_runs_every_product_through_the_kernel_module(
 
 
 def test_unported_engines_and_methods_raise(port_explorer):
+    """"packed" (the default) and "condensed" are ported now and agree
+    with the blocked engine at θ = 1; the gradient search and the sharded
+    evaluator still raise, naming ROADMAP.md."""
     for engine in ("packed", "condensed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_ex.Explorer(_cells(port_ex)[5:6], engine=engine,
-                             device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_ex.Explorer(_cells(port_ex)[5:6], device=CPU)   # default
+        ex = port_ex.Explorer(_cells(port_ex)[5:6], engine=engine,
+                              device=CPU)
+        assert ex.baselines.tolist() == [GOLDEN_THETA1_CYCLES["eyeriss/conv"]]
+    assert port_ex.Explorer(_cells(port_ex)[5:6], device=CPU).engine == \
+        "packed"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_explorer.refine(method="grad")
+    with pytest.raises(ValueError, match="requires engine='packed'"):
+        port_explorer.evaluate(np.ones((1, 5)), sharded=True)
     with pytest.raises(ValueError, match="unknown engine"):
         port_ex.Explorer(_cells(port_ex)[5:6], engine="nope", device=CPU)
