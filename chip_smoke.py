@@ -60,11 +60,17 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    GEMM shapes, as the port's ``extract_operators`` gives them (decode at
    the network cells' shape, M = 8, and prefill at 4 x 2048, M = 8192; K
    = 2048, N in {2048, 4096, 24576, 50304}): bf16 in, float32 out at
-   every shape, ReLU at the ``mlp`` shape, and float32 in and out (TF32
-   off) at the prefill ``mlp`` shape; the counters zeroed just before and
-   read just after; each result held element by element within
-   ``systolic_gemm.error_bound`` of the plain version; CUDA-event times of
-   the kernel, the plain version and ``torch.matmul`` beside the bound;
+   every shape, ReLU at the ``mlp`` shape, and at the prefill ``mlp``
+   shape also float32 in and out (TF32 off) and bf16 in and out; the
+   kernel ``plan`` picks for each (``wgmma`` at prefill, ``splitk`` at
+   decode); the counters zeroed just before and read just after (each
+   product on its planned kernel, none on ``mma_sync``); each result held
+   element by element within ``systolic_gemm.error_bound`` of the plain
+   version, the ``mma.sync`` kernel on the same bf16 inputs too; times of
+   the kernel, the ``mma.sync`` kernel and ``torch.matmul`` through CUDA
+   events around back-to-back calls and as device time (CUDA-graph
+   replay; decode rotating B through copies beyond the L2), and of the
+   plain version, beside the bound;
 10. the default packed Explorer over the 10 operator cells and the 21
    network cells, ``Explorer(networks=True, device="cuda")``: θ = 1 equal
    to the operator goldens and within rel 1e-4 of the network goldens,
@@ -730,70 +736,173 @@ def gemm_bound(m, k, n, in_dtype, out_dtype):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def graph_ms(calls, reps: int) -> float:
+    """Device ms per call: ``reps`` calls captured in one CUDA graph (call
+    i runs ``calls[i % len(calls)]``), replayed once to warm up, then timed
+    over one replay with CUDA events -- no host work inside the window."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for call in calls:          # builds, workspaces, counter buffers
+            call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for i in range(reps):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def gemm_phase(ops, SG, dev, shapes):
-    """Phase 9: ``ops.gemm`` at ``shapes``: the main-path run (counters
-    zeroed just before, read just after), then each result against the
-    plain version, then times.  Returns (row for the kernels line,
-    launches on the main path)."""
+    """Phase 9: ``ops.gemm`` at ``shapes``: the plan of each product, the
+    main-path run (counters zeroed just before, read just after; each
+    product must run the kernel its plan names), then each result against
+    the plain version, then times: through ``ops.gemm`` and through the
+    private launcher (CUDA events around back-to-back calls; at decode they
+    measure the host) and on the device (CUDA-graph replay) for the
+    kernel, the mma.sync kernel on the same inputs (launcher and device)
+    and ``torch.matmul``.  Decode operands rotate through copies
+    of B larger than twice the L2, as a decode step finds B in device
+    memory.  Returns (row for the kernels line, launches on the main
+    path)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    cases = [(label, m, k, n, torch.bfloat16,
-              1 if label.endswith("mlp") else 0)
+    f32, bf16 = torch.float32, torch.bfloat16
+    top_m = max(s[1] for s in shapes)
+    # (label, m, k, n, input type, activation, output type)
+    cases = [(label, m, k, n, bf16, 1 if label.endswith("mlp") else 0, f32)
              for label, m, k, n in shapes]
-    cases += [(label, m, k, n, torch.float32, 1)
+    cases += [(label, m, k, n, dt, 1, odt)
               for label, m, k, n in shapes
-              if label.endswith("mlp") and m == max(s[1] for s in shapes)]
+              if label.endswith("mlp") and m == top_m
+              for dt, odt in ((f32, f32), (bf16, bf16))]
     inputs = [(torch.randn((m, k), generator=gen, device=dev).to(dt),
                torch.randn((k, n), generator=gen, device=dev).to(dt))
-              for _, m, k, n, dt, _ in cases]
+              for _, m, k, n, dt, _, _ in cases]
+    props = torch.cuda.get_device_properties(dev)
+    plans = [SG.plan(m, k, n, dt, SG._aligned16(a, b),
+                     sms=props.multi_processor_count)
+             for (_, m, k, n, dt, _, _), (a, b) in zip(cases, inputs)]
+    for (label, m, k, n, dt, act, odt), p in zip(cases, plans):
+        print(f"systolic_gemm plan {label} ({m}, {k}, {n}) {str(dt)[6:]} -> "
+              f"{str(odt)[6:]}: {p.variant}, tile {p.tile}, splits "
+              f"{p.splits}, grid {p.grid}", flush=True)
     torch.cuda.synchronize()
     SG.reset_counts()
-    outs = [ops.gemm(a, b, activation=act)
-            for (a, b), (*_, act) in zip(inputs, cases)]
+    outs, ran = [], []
+    for (a, b), (*_, act, odt) in zip(inputs, cases):
+        before = dict(SG.VARIANT_LAUNCHES)
+        outs.append(ops.gemm(a, b, activation=act, out_dtype=odt))
+        ran.append([v for v in SG.VARIANTS
+                    if SG.VARIANT_LAUNCHES[v] != before[v]])
     torch.cuda.synchronize()
     launches, plain = (SG.LAUNCHES["systolic_gemm"],
                        SG.PLAIN_CALLS["systolic_gemm"])
+    variants = dict(SG.VARIANT_LAUNCHES)
     check(launches == len(cases) and plain == 0,
           f"ops.gemm main path: {launches} launches, {plain} plain calls "
           f"for {len(cases)} products")
+    for (label, m, k, n, dt, _, _), p, r in zip(cases, plans, ran):
+        check(r == [p.variant], f"systolic_gemm {label} {str(dt)[6:]}: "
+                                f"planned {p.variant}, ran {r}")
+        if dt == bf16:
+            want = "splitk" if m <= SG.SPLITK_MAX_M else "wgmma"
+            check(p.variant == want, f"systolic_gemm {label}: {p.variant} "
+                                     f"at an olmo-1b shape, not {want}")
+    check(variants["mma_sync"] == 0, "mma_sync ran on the main path")
+    print(f"systolic_gemm main path: {launches} launches by kernel "
+          f"{variants}, {plain} plain calls", flush=True)
+    l2 = props.L2_cache_size
     results = []
-    for (label, m, k, n, dt, act), (a, b), out in zip(cases, inputs, outs):
-        want = SG.systolic_gemm_torch(a, b, activation=act)
+    for (label, m, k, n, dt, act, odt), (a, b), out, p in zip(
+            cases, inputs, outs, plans):
+        name = f"{label} ({m}, {k}, {n}) {str(dt)[6:]} -> {str(odt)[6:]}"
+        want = SG.systolic_gemm_torch(a, b, activation=act, out_dtype=odt)
         bnd = SG.error_bound(a, b, want)
-        err = (out - want).abs_()
+        err = (out.float() - want.float()).abs_()
         bad, worst = int((err > bnd).sum()), float((err / bnd).max())
         max_err = float(err.max())
         finite = bool(torch.isfinite(out).all())
+        old_plan = SG.plan(m, k, n, dt, False)
+        old_worst = None
+        if dt == bf16:                # the mma.sync kernel, held the same
+            old = SG._launch(a, b, act, odt, old_plan)
+            old_err = (old.float() - want.float()).abs_()
+            check(bool((old_err <= bnd).all()),
+                  f"systolic_gemm {name}: the mma.sync kernel beyond the "
+                  f"bound")
+            old_worst = float((old_err / bnd).max())
+            del old, old_err
         del err, bnd, want
         check(finite and bad == 0,
-              f"systolic_gemm {label} ({m}, {k}, {n}) {str(dt)[6:]}: {bad} "
-              f"elements beyond the bound (max |err| / bound {worst:.3f}), "
-              f"finite {finite}")
+              f"systolic_gemm {name}: {bad} elements beyond the bound (max "
+              f"|err| / bound {worst:.3f}), finite {finite}")
         big = m * k * n > 1e11
-        ms = cuda_ms(lambda: ops.gemm(a, b, activation=act),
-                     reps=3 if dt == torch.float32 else (10 if big else 50))
+        reps = 3 if dt == f32 else (10 if big else 50)
+        ms = cuda_ms(lambda: ops.gemm(a, b, activation=act, out_dtype=odt),
+                     reps=reps)
+        # the same kernel through the private launcher, as the mma.sync
+        # kernel is timed: the host work of the two then matches
+        launch_ms = cuda_ms(lambda: SG._launch(a, b, act, odt, p), reps=reps)
         plain_ms = cuda_ms(lambda: SG.systolic_gemm_torch(
-            a, b, activation=act), reps=2 if big else 10)
-        lib_ms = cuda_ms(lambda: torch.matmul(a, b),
-                         reps=3 if dt == torch.float32 else (10 if big
-                                                             else 50))
-        bms, by = gemm_bound(m, k, n, dt, torch.float32)
+            a, b, activation=act, out_dtype=odt), reps=2 if big else 10)
+        lib_ms = cuda_ms(lambda: torch.matmul(a, b), reps=reps)
+        # device time; decode rotates B (and A) through copies > 2 x L2
+        copies = (1 if m > SG.SPLITK_MAX_M
+                  else max(1, math.ceil(2 * l2 / b.nbytes)))
+        ops_in = [(a, b)] + [(a.clone(), b.clone())
+                             for _ in range(copies - 1)]
+        dreps = 3 if dt == f32 else (5 if big else 4 * copies + 36)
+        dev_ms = graph_ms([lambda x=x, y=y: ops.gemm(
+            x, y, activation=act, out_dtype=odt) for x, y in ops_in], dreps)
+        lib_dev_ms = graph_ms([lambda x=x, y=y: torch.matmul(x, y)
+                               for x, y in ops_in], dreps)
+        old_ms = old_dev_ms = None
+        if dt == bf16:
+            old_ms = cuda_ms(lambda: SG._launch(a, b, act, odt, old_plan),
+                             reps=reps)
+            old_dev_ms = graph_ms([lambda x=x, y=y: SG._launch(
+                x, y, act, odt, old_plan) for x, y in ops_in], dreps)
+        del ops_in
+        bms, by = gemm_bound(m, k, n, dt, odt)
         results.append(dict(
-            label=label, shape=[m, k, n], dtype=str(dt)[6:], activation=act,
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-            bound_by=by, max_abs_err=max_err, err_over_bound=worst))
-        print(f"systolic_gemm {label} ({m}, {k}, {n}) {str(dt)[6:]} -> "
-              f"float32, ReLU {act}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, torch.matmul ({str(dt)[6:]}) "
-              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-              f"{100 * bms / ms:.1f}% of bound, {lib_ms / ms:.3f}x the "
-              f"library's speed; max |err| {max_err:.3e}, max |err| / bound "
-              f"{worst:.4f}", flush=True)
+            label=label, shape=[m, k, n], dtype=str(dt)[6:],
+            out_dtype=str(odt)[6:], activation=act, variant=p.variant,
+            tile=list(p.tile), splits=p.splits, grid=list(p.grid),
+            ms=ms, launch_ms=launch_ms, device_ms=dev_ms, plain_ms=plain_ms,
+            library_ms=lib_ms,
+            library_device_ms=lib_dev_ms, old_kernel_ms=old_ms,
+            old_kernel_device_ms=old_dev_ms, bound_ms=bms, bound_by=by,
+            max_abs_err=max_err, err_over_bound=worst,
+            old_kernel_err_over_bound=old_worst, b_copies=copies))
+        old_txt = ("" if old_ms is None else
+                   f"; mma.sync kernel {old_ms:.4f} ms (launcher), device "
+                   f"{old_dev_ms:.4f} ms ({old_dev_ms / dev_ms:.2f}x the "
+                   f"new one's device time), max |err| / bound "
+                   f"{old_worst:.4f}")
+        print(f"systolic_gemm {name}, ReLU {act} [{p.variant}]: kernel "
+              f"{ms:.4f} ms (ops.gemm), {launch_ms:.4f} ms (launcher), "
+              f"device {dev_ms:.4f} ms ({100 * bms / dev_ms:.1f}"
+              f"% of bound {bms:.4f} ms, {by}){old_txt}; torch.matmul "
+              f"({str(dt)[6:]}) {lib_ms:.4f} ms, device {lib_dev_ms:.4f} ms "
+              f"(kernel / matmul device {dev_ms / lib_dev_ms:.3f}); plain "
+              f"{plain_ms:.4f} ms; max |err| {max_err:.3e}, max |err| / "
+              f"bound {worst:.4f}; B copies {copies}", flush=True)
     del inputs, outs
     torch.cuda.empty_cache()
-    # the kernels line carries the bf16 prefill mlp product, the path's
-    # largest; every case rides along under "cases"
+    # the kernels line carries the bf16 prefill mlp product (float32 out),
+    # the path's largest; every case rides along under "cases"
     row = next(r for r in results if r["dtype"] == "bfloat16"
+               and r["out_dtype"] == "float32"
                and r["label"] == "prefill mlp")
     row = dict(row, cases=results,
                source="src/repro_torch/csrc/systolic_gemm.cu",
@@ -871,6 +980,12 @@ def packed_phase(modules, dev, blocked_cycles):
     del ex, res
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# what a kernel's row may carry beside the contract's keys (the GEMM's
+# chosen kernel, device times, the mma.sync kernel's times, every case)
+EXTRA_KEYS = ("variant", "launch_ms", "device_ms", "library_device_ms",
+              "old_kernel_ms", "old_kernel_device_ms", "cases")
 
 
 def main() -> int:
@@ -1030,7 +1145,7 @@ def main() -> int:
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     shape=r["shape"],
-                    **({"cases": r["cases"]} if "cases" in r else {}))
+                    **{key: r[key] for key in EXTRA_KEYS if key in r})
                for name, r in rows.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

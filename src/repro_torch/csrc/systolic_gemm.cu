@@ -19,28 +19,71 @@
 // (3.35 TB/s).  float32 inputs run on the CUDA cores (67 TFLOP/s; TF32 is
 // never used, the reference holds float32 to 1e-4).
 //
-// What the design does about it: every thread block owns one 128 x 128
-// output tile and walks k itself -- the TPU grid's carried k axis with its
-// VMEM accumulator does not carry over, GPU blocks run in no order.  Blocks
-// are rastered M-tile first, so the blocks in flight share one K x 128
-// panel of B and all of A stays in the 50 MB L2: B is read from device
-// memory once.  The next k tile is fetched into registers while the
-// current one is multiplied out of shared memory (one buffer, two
-// barriers per tile).
-//   * bf16: 8 warps as 2 x 4, each warp a 64 x 32 sub-tile of mma.sync
-//     m16n8k16 products (float32 accumulators, 64 per thread); A fragments
-//     are 32-bit shared-memory loads, B fragments come transposed through
-//     ldmatrix.trans; k tiles of 32, rows padded by 16 bytes so neither
-//     read conflicts on banks.
-//   * float32: 16 x 16 threads, each an 8 x 8 register tile (two 4-row by
-//     two 4-column strips, read as 16-byte shared-memory loads), FFMA in
-//     k order; k tiles of 8, A stored transposed.
-// Global loads are 16-byte vectors when K and N allow it and the pointers
-// are aligned; otherwise element by element.  Ragged M, N and K are
-// bounds-checked (zeros past K, no stores past M or N): no padded copies.
-// ReLU and the cast happen in the epilogue.  wgmma, TMA, cp.async
-// pipelining and split-K for small M are not used yet.
+// What the design does about it -- four kernels, chosen on the host by
+// shape and alignment alone (repro_torch/kernels/systolic_gemm.py, plan):
+//
+//   * wgmma (bf16, M > 64, K and N multiples of 8, 16-byte aligned
+//     pointers): the prefill products, bound by the tensor cores.  A
+//     persistent grid of one 384-thread block per SM walks 128 x 256 output
+//     tiles in a grouped order (16 m-tiles at a time), so the blocks in
+//     flight share panels of A and B in the L2.  Warp-specialised: one
+//     producer warpgroup (its registers lowered by setmaxnreg) keeps TMA
+//     loads in flight into a ring of 4 stages of 64-deep k tiles (16 KB of
+//     A, 32 KB of B, both with the 128-byte swizzle; B arrives as four
+//     64-column boxes, the widest a swizzled box may be), each stage with a
+//     full and an empty mbarrier.  Two consumer warpgroups each run
+//     wgmma.mma_async m64n256k16 on 64 rows of the tile, with float32
+//     accumulators in registers (128 a thread).  B is row-major (K, N), so
+//     its tile is N-major in shared memory and wgmma reads it through the
+//     transpose bit -- no transposed copy.  One wgmma group stays in flight
+//     while the previous stage is handed back to the producer, and the
+//     producer runs ahead into the next tile while the consumers store
+//     this one's epilogue: ReLU and the cast in registers, 128-byte-wide
+//     chunks of rows staged in two 8 KB shared-memory buffers per
+//     warpgroup and written by TMA stores, so the consumers return to the
+//     tensor cores while the stores drain (on an H100 the prefill mlp
+//     product went from 1.20 to 1.12 ms when its epilogue stopped storing
+//     from registers).  TMA zero-fills loads past M, N and K, and clips
+//     stores at M and N.
+//   * splitk (bf16, M <= 64, same alignment): the decode products, bound
+//     by reading B once.  ceil(N / 64) panels of 64 columns (128 bytes of
+//     each row of B), and K split so that the grid has at least 2 blocks
+//     per SM; each 128-thread block streams its share of B through a
+//     6-stage cp.async ring whose slots are all filled up front (a share of
+//     up to 6 k tiles costs one round trip to device memory), and runs
+//     mma.sync m16n8k16 with the operands swapped: 16 columns of B per warp
+//     as the m side, read transposed through ldmatrix.trans, the activation
+//     rows as n = 8, 16, 32 or 64, so no tensor-core work is spent padding
+//     M to 64 or 128 (the tensor cores are ~0.3% busy at M = 8: any route
+//     to them will do, and mma.sync needs no shared-memory descriptors).
+//     With more than one split, the partial sums go to a float32 workspace;
+//     one thread per block counts the block in on an integer counter per
+//     panel (acquire-release), and the last block to arrive adds the
+//     partials in split order, applies ReLU and the cast, and resets the
+//     counter: the result is deterministic, and no float atomics are used.
+//   * mma_sync (bf16 otherwise: K or N not a multiple of 8, misaligned
+//     views): every thread block owns one 128 x 128 output tile and walks k
+//     itself, blocks rastered M-tile first; the next k tile is fetched into
+//     registers while the current one is multiplied out of shared memory
+//     (one buffer, two barriers per tile); 8 warps as 2 x 4, each warp a
+//     64 x 32 sub-tile of mma.sync m16n8k16 products (float32 accumulators,
+//     64 per thread); A fragments are 32-bit shared-memory loads, B
+//     fragments come transposed through ldmatrix.trans; k tiles of 32, rows
+//     padded by 16 bytes so neither read conflicts on banks.
+//   * f32 (float32 inputs): the same 128 x 128 tiles on the CUDA cores, 16
+//     x 16 threads, each an 8 x 8 register tile (two 4-row by two 4-column
+//     strips, read as 16-byte shared-memory loads), FFMA in k order; k
+//     tiles of 8, A stored transposed.
+//
+// In mma_sync and f32, global loads are 16-byte vectors when K and N allow
+// it and the pointers are aligned, otherwise element by element; ragged M,
+// N and K are bounds-checked (zeros past K, no stores past M or N): no
+// padded copies anywhere.  ReLU and the cast happen in every epilogue.
+// The TMA descriptors are encoded on the host through
+// cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint (no -lcuda),
+// and passed as __grid_constant__ kernel parameters.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -390,14 +433,661 @@ int launch_f32(const float* A, const float* B, OutT* C, int M, int K, int N,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Hopper primitives: mbarriers, TMA, wgmma, cp.async
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// one 2-D box of a tensor map into shared memory; the barrier counts its
+// bytes (the whole box, zero-filled where it lies out of bounds)
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(bar) : "memory");
+}
+
+// one 2-D box from shared memory into a tensor map (clipped at its bounds)
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];\n" ::"l"((uint64_t)map), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// barrier of the 128 threads of one warpgroup (id 0 is __syncthreads')
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// (x, y) cast to the output type, 8 or 4 bytes into shared memory
+__device__ __forceinline__ void st_shared_out(uint32_t addr, float x, float y,
+                                              float*) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x),
+               "f"(y) : "memory");
+}
+__device__ __forceinline__ void st_shared_out(uint32_t addr, float x, float y,
+                                              bf16*) {
+  uint32_t bits;   // y in the high half, x in the low
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(bits) : "f"(y), "f"(x));
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(bits)
+               : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile in the 128-byte swizzle: start
+// address, leading and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of the accumulators across
+// the asynchronous wgmma instructions
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 256, float32) (+)= A (64 x 16, K-major) B (16 x 256, N-major:
+// the transpose bit); scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// 16 bytes from global into shared memory, zero-filled when src_bytes = 0
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// bf16, M > 64: TMA + wgmma, warp-specialised, persistent
+// ---------------------------------------------------------------------------
+
+namespace wg {
+constexpr int BM = 128, BN = 256, BK = 64;   // output tile, k tile
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;                  // producer + 2 consumers
+constexpr int BOX_N = 64;                     // widest 128-byte-swizzled box
+constexpr int A_BYTES = BM * BK * 2;          // 16 KB
+constexpr int B_BOX_BYTES = BK * BOX_N * 2;   // 8 KB
+constexpr int STAGE_BYTES = A_BYTES + BK * BN * 2;   // 48 KB
+// epilogue: each consumer warpgroup stages its 64 rows of C through two
+// 8 KB buffers, 128 bytes of each row at a time, for TMA stores
+constexpr int EPI_BYTES = 64 * 128;
+constexpr int SMEM_BYTES =
+    STAGES * STAGE_BYTES + 4 * EPI_BYTES + 2 * STAGES * 8 + 1024;
+constexpr int GROUP_M = 16;                   // m-tiles per raster group
+}  // namespace wg
+
+// tile index -> (m-tile, n-tile): groups of GROUP_M m-tiles, n-major
+// inside a group, so the tiles in flight share A and B panels in the L2
+__device__ __forceinline__ void tile_coords(int tile, int tiles_m,
+                                            int tiles_n, int& tm, int& tn) {
+  const int group = wg::GROUP_M * tiles_n;
+  const int first_m = (tile / group) * wg::GROUP_M;
+  const int gm = min(tiles_m - first_m, wg::GROUP_M);
+  const int r = tile % group;
+  tm = first_m + r % gm;
+  tn = r / gm;
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b,
+                  const __grid_constant__ CUtensorMap map_c, int M, int K,
+                  int N, int relu) {
+  constexpr int BM = wg::BM, BN = wg::BN, BK = wg::BK, STAGES = wg::STAGES;
+  constexpr int BOX_N = wg::BOX_N, A_BYTES = wg::A_BYTES;
+  constexpr int B_BOX_BYTES = wg::B_BOX_BYTES, STAGE_BYTES = wg::STAGE_BYTES;
+  extern __shared__ uint8_t smem_wg[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the ring to that
+  const uint32_t raw = smem_u32(smem_wg);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t epi = ring + STAGES * STAGE_BYTES;   // 4 x EPI_BYTES
+  const uint32_t bars = epi + 4 * wg::EPI_BYTES;      // full[s], empty[s]
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+  const int tiles = tiles_m * tiles_n, ktiles = (K + BK - 1) / BK;
+  const int group = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);       // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (group == 0) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (t != 0) return;
+    int s = 0, phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int tm, tn;
+      tile_coords(tile, tiles_m, tiles_n, tm, tn);
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(empty(s), phase ^ 1);
+        mbar_expect_tx(full(s), STAGE_BYTES);
+        const uint32_t a_dst = ring + s * STAGE_BYTES;
+        tma_load_2d(a_dst, &map_a, kt * BK, tm * BM, full(s));
+#pragma unroll
+        for (int j = 0; j < BN / BOX_N; ++j)
+          tma_load_2d(a_dst + A_BYTES + j * B_BOX_BYTES, &map_b,
+                      tn * BN + j * BOX_N, kt * BK, full(s));
+        if (++s == STAGES) { s = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup c holds rows 64c .. 64c + 63 of the tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = group - 1;
+  const int warp = t / 32, lane = t % 32;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  int s = 0, phase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int tm, tn;
+    tile_coords(tile, tiles_m, tiles_n, tm, tn);
+    int prev = 0;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(full(s), phase);
+      const uint32_t a_src = ring + s * STAGE_BYTES + c * (64 * BK * 2);
+      const uint32_t b_src = ring + s * STAGE_BYTES + A_BYTES;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // A: K-major, 8-row groups 1024 B apart, k16 steps 32 B along a
+        // swizzled row; B: N-major, 8 k-rows per 1024 B, 64-column boxes
+        // 8 KB apart, k16 steps two 8-row groups
+        const uint64_t da = sw128_desc(a_src + kk * 32, 16, 1024);
+        const uint64_t db = sw128_desc(b_src + kk * 2048, B_BOX_BYTES, 1024);
+        wgmma_m64n256k16(acc, da, db, (kt | kk) != 0);
+      }
+      wgmma_commit();
+      // the group before this one is done: hand its stage back
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (kt > 0 && lane == 0) mbar_arrive(empty(prev));
+      prev = s;
+      if (++s == STAGES) { s = 0; phase ^= 1; }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(empty(prev));
+
+    // epilogue: thread t holds rows r and r + 8 of each 8-column group.
+    // Chunks of 128 bytes a row (COLS columns) go through the warpgroup's
+    // two staging buffers in the 128-byte swizzle, and one thread hands
+    // each to a TMA store: the consumers return to the next tile's wgmma
+    // while the stores drain, and the store clips at M and N.
+    constexpr int COLS = 128 / (int)sizeof(OutT);
+    const int r = 16 * warp + lane / 4;           // and r + 8
+#pragma unroll
+    for (int q = 0; q < BN / COLS; ++q) {
+      const uint32_t buf = epi + (2 * c + q % 2) * wg::EPI_BYTES;
+      // the store that last read this buffer, two chunks ago, is done
+      if (t == 0)
+        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+      warpgroup_sync(1 + c);
+#pragma unroll
+      for (int jj = 0; jj < COLS / 8; ++jj) {
+        const int j = q * (COLS / 8) + jj;   // constant once unrolled
+        const int byte = (8 * jj + 2 * (lane % 4)) * sizeof(OutT);
+        float v[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                      acc[4 * j + 3]};
+        if (relu)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = fmaxf(v[e], 0.f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r + 8 * h;
+          const uint32_t at = buf + row * 128 +
+                              (((byte / 16) ^ (row % 8)) * 16) + byte % 16;
+          st_shared_out(at, v[2 * h], v[2 * h + 1], (OutT*)nullptr);
+        }
+      }
+      // the generic-proxy writes are visible to the TMA unit, then store
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      warpgroup_sync(1 + c);
+      if (t == 0) {
+        tma_store_2d(&map_c, buf, tn * BN + q * COLS, tm * BM + 64 * c);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+  }
+  // the last stores have read their buffers before the block exits
+  if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// bf16, M <= 64: split-K, mma.sync with swapped operands
+// ---------------------------------------------------------------------------
+
+namespace sk {
+constexpr int BN = 64, BK = 64;      // a block's panel width, k tile
+constexpr int STAGES = 6;
+constexpr int THREADS = 128;         // 4 warps, 16 columns each
+constexpr int LDB = BN + 8;          // padded rows: ldmatrix without
+constexpr int LDA = BK + 8;          // bank conflicts
+template <int NT>
+constexpr int smem_bytes() {
+  return STAGES * (BK * LDB + NT * 8 * LDA) * 2;
+}
+}  // namespace sk
+
+// NT groups of 8 activation rows (M <= 8 NT).  Block (panel, split) owns
+// columns 64 panel .. + 63 and k tiles [split T / splits, (split + 1) T /
+// splits) of the T = ceil(K / 64).
+template <int NT, typename OutT>
+__global__ void __launch_bounds__(sk::THREADS)
+gemm_splitk_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
+                   OutT* __restrict__ C, float* __restrict__ ws,
+                   int* __restrict__ counters, int M, int K, int N,
+                   int splits, int relu) {
+  constexpr int BN = sk::BN, BK = sk::BK, STAGES = sk::STAGES;
+  constexpr int THREADS = sk::THREADS, LDB = sk::LDB, LDA = sk::LDA;
+  extern __shared__ __align__(16) uint8_t smem_sk[];
+  bf16* Bs = reinterpret_cast<bf16*>(smem_sk);    // [STAGES][BK][LDB]
+  bf16* As = Bs + STAGES * BK * LDB;               // [STAGES][8 NT][LDA]
+  __shared__ int last;
+
+  const int panel = blockIdx.x, split = blockIdx.y;
+  const int n0 = panel * BN;
+  const int T = (K + BK - 1) / BK;
+  const int t0 = (int)((int64_t)split * T / splits);
+  const int nt = (int)((int64_t)(split + 1) * T / splits) - t0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tg = lane % 4;
+
+  auto load = [&](int slot, int kt) {
+    const int k0 = kt * BK;
+    bf16* bs = Bs + slot * BK * LDB;
+    bf16* as = As + slot * NT * 8 * LDA;
+    // B: 64 k rows x 8 chunks of 8 columns (N % 8 == 0: a chunk is all in
+    // or all out)
+#pragma unroll
+    for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
+      const int ch = threadIdx.x + THREADS * i;
+      const int r = ch / (BN / 8), cn = 8 * (ch % (BN / 8));
+      const bool ok = k0 + r < K && n0 + cn < N;
+      cp_async16(bs + r * LDB + cn,
+                 ok ? B + (int64_t)(k0 + r) * N + n0 + cn : B, ok ? 16 : 0);
+    }
+    // A: 8 NT rows x 8 chunks of 8 k
+    for (int ch = threadIdx.x; ch < NT * 8 * (BK / 8); ch += THREADS) {
+      const int r = ch / (BK / 8), ck = 8 * (ch % (BK / 8));
+      const bool ok = r < M && k0 + ck < K;
+      cp_async16(as + r * LDA + ck, ok ? A + (int64_t)r * K + k0 + ck : A,
+                 ok ? 16 : 0);
+    }
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // every slot is filled up front, so a share of at most STAGES tiles
+  // costs one round trip to device memory
+#pragma unroll
+  for (int st = 0; st < STAGES; ++st) {
+    if (st < nt) load(st, t0 + st);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();                    // tile i has landed
+    const bf16* bs = Bs + (i % STAGES) * BK * LDB;
+    const bf16* as = As + (i % STAGES) * NT * 8 * LDA;
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      // the m side: 16 columns of B, read transposed out of the [k][n]
+      // tile; lanes 8q .. 8q + 7 address matrix q = (k half, n half)
+      const int q = lane / 8;
+      const bf16* p = bs + (16 * ks + 8 * (q / 2) + lane % 8) * LDB +
+                      16 * warp + 8 * (q % 2);
+      uint32_t a[4];
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+          "{%0,%1,%2,%3}, [%4];\n"
+          : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+          : "r"(smem_u32(p)));
+      // the n side: activation rows 8j + g, k pairs 2tg and 2tg + 8
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const bf16* pa = as + (8 * j + g) * LDA + 16 * ks + 2 * tg;
+        mma_bf16(acc[j], a, *reinterpret_cast<const uint32_t*>(pa),
+                 *reinterpret_cast<const uint32_t*>(pa + 8));
+      }
+    }
+    __syncthreads();                    // slot i % STAGES is free again
+    if (i + STAGES < nt) load(i % STAGES, t0 + i + STAGES);
+    cp_async_commit();
+  }
+
+  // acc[j][e]: column n0 + 16 warp + g + 8 (e / 2), activation row
+  // 8 j + 2 tg + e % 2
+  if (splits == 1) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n0 + 16 * warp + g + 8 * (e / 2);
+        const int row = 8 * j + 2 * tg + e % 2;
+        if (row < M && col < N) {
+          const float x = acc[j][e];
+          store_out(C + (int64_t)row * N + col, relu ? fmaxf(x, 0.f) : x);
+        }
+      }
+    return;
+  }
+  float* part = ws + (int64_t)split * M * N;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = n0 + 16 * warp + g + 8 * (e / 2);
+      const int row = 8 * j + 2 * tg + e % 2;
+      if (row < M && col < N) part[(int64_t)row * N + col] = acc[j][e];
+    }
+  // one thread counts the block in: the barrier orders the block's
+  // partials before its release, its acquire orders the other blocks'
+  // partials before the last block's reads
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int old;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(old) : "l"(counters + panel) : "memory");
+    last = old == splits - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block of the panel: thread t sums column n0 + t % 64 of rows
+  // t / 64, t / 64 + 2, ... over the splits, in split order
+  constexpr int PER = 8 * NT * BN / THREADS;
+  const int col = n0 + threadIdx.x % BN, row0 = threadIdx.x / BN;
+  if (col < N) {
+    float x[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) x[i] = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int row = row0 + (THREADS / BN) * i;
+        if (row < M) x[i] += __ldcg(ws + ((int64_t)sp * M + row) * N + col);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int row = row0 + (THREADS / BN) * i;
+      if (row < M)
+        store_out(C + (int64_t)row * N + col, relu ? fmaxf(x[i], 0.f) : x[i]);
+    }
+  }
+  if (threadIdx.x == 0) counters[panel] = 0;   // ready for the next call
+}
+
+// ---------------------------------------------------------------------------
+// host side of the new kernels
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, found once through the runtime
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+template <typename T> constexpr CUtensorMapDataType map_type();
+template <> constexpr CUtensorMapDataType map_type<bf16>() {
+  return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+template <> constexpr CUtensorMapDataType map_type<float>() {
+  return CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+}
+
+// a row-major (rows, cols) matrix, boxes of box_rows rows x 128 bytes in
+// the 128-byte swizzle; loads zero-fill out of bounds, stores clip
+template <typename T>
+bool encode_map(CUtensorMap* map, const T* ptr, int rows, int cols,
+                int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / sizeof(T)),
+                             (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, map_type<T>(), 2, const_cast<T*>(ptr), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename OutT>
+int launch_wgmma(const bf16* A, const bf16* B, OutT* C, int M, int K, int N,
+                 int relu, int grid, cudaStream_t s) {
+  CUtensorMap map_a, map_b, map_c;
+  if (!encode_map(&map_a, A, M, K, wg::BM) ||
+      !encode_map(&map_b, B, K, N, wg::BK) ||
+      !encode_map(&map_c, C, M, N, 64))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      gemm_wgmma_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wg::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  gemm_wgmma_kernel<OutT><<<grid, wg::THREADS, wg::SMEM_BYTES, s>>>(
+      map_a, map_b, map_c, M, K, N, relu);
+  return (int)cudaGetLastError();
+}
+
+template <int NT, typename OutT>
+int launch_splitk_nt(const bf16* A, const bf16* B, OutT* C, float* ws,
+                     int* counters, int M, int K, int N, int relu, int splits,
+                     cudaStream_t s) {
+  constexpr int bytes = sk::smem_bytes<NT>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      gemm_splitk_kernel<NT, OutT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((N + sk::BN - 1) / sk::BN, splits);
+  gemm_splitk_kernel<NT, OutT><<<grid, sk::THREADS, bytes, s>>>(
+      A, B, C, ws, counters, M, K, N, splits, relu);
+  return (int)cudaGetLastError();
+}
+
+template <typename OutT>
+int launch_splitk(const bf16* A, const bf16* B, OutT* C, float* ws,
+                  int* counters, int M, int K, int N, int relu, int splits,
+                  cudaStream_t s) {
+  if (M <= 8)
+    return launch_splitk_nt<1>(A, B, C, ws, counters, M, K, N, relu, splits, s);
+  if (M <= 16)
+    return launch_splitk_nt<2>(A, B, C, ws, counters, M, K, N, relu, splits, s);
+  if (M <= 32)
+    return launch_splitk_nt<4>(A, B, C, ws, counters, M, K, N, relu, splits, s);
+  return launch_splitk_nt<8>(A, B, C, ws, counters, M, K, N, relu, splits, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// A (M, K), B (K, N), C (M, N): contiguous, on the device of `stream`;
-// K >= 1, ceil(N / 128) <= 65535 (the wrapper checks).  C is float32
+// Every entry point: A (M, K), B (K, N), C (M, N) contiguous, on the
+// device of `stream`; K >= 1 (the wrapper checks).  C is float32
 // (out_bf16 = 0) or bfloat16 (out_bf16 = 1).  Returns cudaGetLastError()
-// after the launch.
+// after the launch, or the error that kept it from launching.
+
+// The tile sizes the host-side plan must agree with: the wgmma kernel's
+// (BM, BN, BK), the split-K kernel's (BN, BK), the 128 x 128 kernels'.
+void systolic_gemm_tiles(int* out) {
+  out[0] = wg::BM;
+  out[1] = wg::BN;
+  out[2] = wg::BK;
+  out[3] = sk::BN;
+  out[4] = sk::BK;
+  out[5] = BM;
+  out[6] = BN;
+}
+
+// bf16, M > 64: TMA + wgmma on a persistent grid of `grid` blocks.  K and
+// N multiples of 8, A and B 16-byte aligned (else cudaErrorInvalidValue).
+int systolic_gemm_bf16_wgmma(const void* A, const void* B, void* C, int M,
+                             int K, int N, int activation, int out_bf16,
+                             int grid, void* stream) {
+  const bf16 *a = (const bf16*)A, *b = (const bf16*)B;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int relu = activation == 1;
+  return out_bf16 ? launch_wgmma(a, b, (bf16*)C, M, K, N, relu, grid, s)
+                  : launch_wgmma(a, b, (float*)C, M, K, N, relu, grid, s);
+}
+
+// bf16, M <= 64: split-K over `splits` (1 .. ceil(K / 64)) shares of K.
+// With splits > 1: `ws` holds splits x M x N floats, `counters` one int
+// per 64-column panel, zero on entry and left zero on exit.
+int systolic_gemm_bf16_splitk(const void* A, const void* B, void* C,
+                              void* ws, void* counters, int M, int K, int N,
+                              int activation, int out_bf16, int splits,
+                              void* stream) {
+  const bf16 *a = (const bf16*)A, *b = (const bf16*)B;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int relu = activation == 1;
+  float* w = (float*)ws;
+  int* cnt = (int*)counters;
+  return out_bf16 ? launch_splitk(a, b, (bf16*)C, w, cnt, M, K, N, relu,
+                                  splits, s)
+                  : launch_splitk(a, b, (float*)C, w, cnt, M, K, N, relu,
+                                  splits, s);
+}
+
+// bf16 otherwise: 128 x 128 tiles of mma.sync; ceil(N / 128) <= 65535.
 int systolic_gemm_bf16(const void* A, const void* B, void* C, int M, int K,
                        int N, int activation, int out_bf16, void* stream) {
   const bf16 *a = (const bf16*)A, *b = (const bf16*)B;
@@ -407,6 +1097,7 @@ int systolic_gemm_bf16(const void* A, const void* B, void* C, int M, int K,
                   : launch_bf16(a, b, (float*)C, M, K, N, relu, s);
 }
 
+// float32: 128 x 128 tiles on the CUDA cores; ceil(N / 128) <= 65535.
 int systolic_gemm_f32(const float* A, const float* B, void* C, int M, int K,
                       int N, int activation, int out_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;

@@ -267,8 +267,10 @@ def test_lm_forward_on_card_goes_through_the_kernels(card, exact_f32):
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_kernel_systolic_gemm_matches_plain(card, m, k, n, dtype, activation,
                                             out_dtype):
-    """Ragged shapes (element-by-element loads) and 16-byte-aligned ones
-    (vector loads), one and several output tiles."""
+    """Ragged shapes and 16-byte-aligned ones, one and several output
+    tiles: float32 on the f32 kernel (element-by-element and vector
+    loads); bf16 37x53x29 on mma_sync, 64x200x96 on split-K (M <= 64),
+    300x256x264 on wgmma (ragged M and N)."""
     rng = np.random.default_rng(m * k + n)
     a, b = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
             .to(dtype).to(card) for s in ((m, k), (k, n)))
@@ -303,6 +305,93 @@ def test_systolic_gemm_rejects_what_it_cannot_take(card):
         SG.systolic_gemm(a, a)
     with pytest.raises(ValueError, match="activation"):
         SG.systolic_gemm(a, b, activation=2)
+
+
+def _gemm_inputs(card, m, k, n, dtype=torch.bfloat16, seed=None):
+    rng = np.random.default_rng(m * k + n if seed is None else seed)
+    return tuple(torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                 .to(dtype).to(card) for s in ((m, k), (k, n)))
+
+
+def _assert_gemm_close(out, a, b, activation, out_dtype):
+    assert out.dtype == out_dtype and out.shape == (a.shape[0], b.shape[1])
+    want = SG.systolic_gemm_torch(a, b, activation=activation,
+                                  out_dtype=out_dtype)
+    err = (out.float() - want.float()).abs()
+    bound = SG.error_bound(a, b, want)
+    assert bool((err <= bound).all()), (
+        f"{int((err > bound).sum())} elements beyond the bound, max |err| "
+        f"{float(err.max()):.3e}, max |err| / bound "
+        f"{float((err / bound).max()):.3f}")
+
+
+GEMM_VARIANT_CASES = (
+    [("wgmma", 128, 64, 256), ("wgmma", 300, 256, 264),
+     ("wgmma", 8192, 2048, 2048)]
+    + [("splitk", m, 2048, n) for m in (1, 8, 17, 64) for n in (2048, 264)])
+
+
+@pytest.mark.parametrize("variant,m,k,n", GEMM_VARIANT_CASES)
+@pytest.mark.parametrize("activation", [0, 1])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_systolic_gemm_variants_match_plain(card, variant, m, k, n,
+                                            activation, out_dtype):
+    """The wgmma kernel (a single 128 x 256 tile, ragged M and N, a
+    persistent grid of many tiles) and the split-K kernel (M from 1 to 64,
+    N a whole and a ragged number of 128-column panels) against the plain
+    version, each reached through ``plan`` and counted."""
+    a, b = _gemm_inputs(card, m, k, n)
+    p = SG.plan(m, k, n, torch.bfloat16, True,
+                sms=torch.cuda.get_device_properties(card)
+                .multi_processor_count)
+    assert p.variant == variant
+    before = dict(SG.VARIANT_LAUNCHES)
+    out = SG.systolic_gemm(a, b, activation=activation, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert SG.VARIANT_LAUNCHES[variant] == before[variant] + 1
+    assert sum(SG.VARIANT_LAUNCHES.values()) == sum(before.values()) + 1
+    _assert_gemm_close(out, a, b, activation, out_dtype)
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 53, 29), (64, 200, 96),
+                                   (300, 256, 264)])
+def test_mma_sync_kernel_keeps_ragged_shapes(card, m, k, n):
+    """The mma.sync kernel, through the private launcher with its
+    own plan, at the ragged shapes of the test above; and a 64x200x96
+    product whose views start 2 bytes past a 16-byte boundary reaches it
+    through the public path."""
+    a, b = _gemm_inputs(card, m, k, n)
+    p = SG.plan(m, k, n, torch.bfloat16, False)
+    assert p.variant == "mma_sync"
+    before = SG.VARIANT_LAUNCHES["mma_sync"]
+    out = SG._launch(a, b, 1, torch.float32, p)
+    torch.cuda.synchronize()
+    assert SG.VARIANT_LAUNCHES["mma_sync"] == before + 1
+    _assert_gemm_close(out, a, b, 1, torch.float32)
+    if (m, k, n) == (64, 200, 96):
+        a1 = torch.empty(m * k + 1, dtype=a.dtype, device=card)[1:]
+        a1.copy_(a.reshape(-1))
+        a1 = a1.view(m, k)
+        out = SG.systolic_gemm(a1, b)
+        torch.cuda.synchronize()
+        assert SG.VARIANT_LAUNCHES["mma_sync"] == before + 2
+        _assert_gemm_close(out, a1, b, 0, torch.float32)
+
+
+@pytest.mark.parametrize("m,k,n,variant", [(8, 2048, 2048, "splitk"),
+                                           (1, 2048, 264, "splitk"),
+                                           (300, 256, 264, "wgmma"),
+                                           (37, 53, 29, "mma_sync")])
+def test_systolic_gemm_is_deterministic(card, m, k, n, variant):
+    """Two calls on the same inputs give bit-equal outputs -- split-K's
+    partial sums included (added in split order, no float atomics)."""
+    a, b = _gemm_inputs(card, m, k, n, seed=7)
+    before = SG.VARIANT_LAUNCHES[variant]
+    x = SG.systolic_gemm(a, b, activation=1)
+    y = SG.systolic_gemm(a, b, activation=1)
+    torch.cuda.synchronize()
+    assert SG.VARIANT_LAUNCHES[variant] == before + 2
+    assert torch.equal(x, y)
 
 
 def test_ops_wrappers_launch_kernels_on_card(card, exact_f32):
