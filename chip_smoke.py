@@ -9,8 +9,8 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel source (``src/repro_torch/csrc/{maxplus,
-   flash_attention,selective_scan,systolic_gemm}.cu``) with ``nvcc``
-   (sm_90a) into
+   flash_attention,selective_scan,systolic_gemm}.cu``, the last two
+   including ``csrc/hopper.cuh``) with ``nvcc`` (sm_90a) into
    ``build/repro_torch/``, one ``nvcc`` per source, all started together;
    print the build times and the ``-Xptxas -v`` register and
    shared-memory summaries;
@@ -32,13 +32,18 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    and 256 candidates agree with the wavefront engine within rtol 1e-5;
 6. flash attention and the selective scan against their plain versions
    on the card (TF32 off): flash at the LM path's shape (4 x 32 query
-   heads over 8 KV heads, S = 2048, D = 128) in bf16 and in f32, ragged
-   S = 1000, window 256 at S = 1024, non-causal, Dv != Dq; the scan at
-   (4, 2048, 8192, 16) and (2, 33, 100, 8); float32 and scan tolerances
-   from the reference's kernel tests, bf16 flash within
-   ``bf16_error_bound`` (derived from bf16 rounding); CUDA-event times
-   of kernel, plain version and, for flash,
-   ``scaled_dot_product_attention``, beside the bound;
+   heads over 4 x 8 KV heads, S = 2048, D = 128) in bf16 and in f32, at
+   the prefill shape (S = 512) in bf16, ragged S = 1000, window 256 at S =
+   1024, non-causal, Dv != Dq; the kernel ``flash_attention.plan`` picks
+   for each case printed and checked against ``VARIANT_LAUNCHES`` (every
+   bf16 D = 128 case on ``wgmma``); the scan at (4, 2048, 8192, 16) and
+   (2, 33, 100, 8); float32 and scan tolerances from the reference's
+   kernel tests, bf16 flash within ``bf16_error_bound`` (derived from
+   bf16 rounding); what ``-Xptxas -v`` said of the ``wgmma`` kernel
+   (registers, spills, shared memory); CUDA-event times of kernel, plain
+   version and, for flash, ``scaled_dot_product_attention`` beside the
+   bound, and at the two bf16 shapes the PR 12 ``mma.sync`` kernel too
+   (through the private launcher, held to the same bound);
 7. jamba-v0.1-52b at full width, layers 0-7 (one pattern period: 1
    attention, 7 mamba, 4 MoE layers), float32 weights from a seed, B = 1,
    S = 1024: ``lm.forward`` with the kernel impls against the plain impls
@@ -53,9 +58,9 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    times), then generation as ``examples/serve.py`` does it --
    ``init_cache``, ``lm.prefill(impl="flash_pallas")`` on a 512-token
    prompt, 32 greedy ``decode_step``s -- with the counters zeroed just
-   before and read just after each (flash once and the scan 7 times per
-   forward, no plain version on the card); peak memory, and one scoring
-   forward under ``torch.profiler``;
+   before and read just after each (flash once -- on the ``wgmma`` kernel
+   -- and the scan 7 times per forward, no plain version on the card);
+   peak memory, and one scoring forward under ``torch.profiler``;
 9. the systolic GEMM through ``kernels.ops.gemm`` at olmo-1b's distinct
    GEMM shapes, as the port's ``extract_operators`` gives them (decode at
    the network cells' shape, M = 8, and prefill at 4 x 2048, M = 8192; K
@@ -395,10 +400,24 @@ def scan_bound(x, b):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def ptxas_summary(log: str, kernel: str) -> str:
+    """What ``nvcc -Xptxas -v`` said of the entry points whose mangled
+    name holds ``kernel``: registers, spills, stack, shared memory."""
+    out, take = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            take = kernel in line
+            continue
+        if take and "Function properties" not in line:
+            out.append(line.replace("ptxas info    :", "").strip())
+    return "; ".join(out) or "not found in the build log"
+
+
 def lm_kernel_phase(FA, SS, dev):
     """Phase 6: flash attention and the scan vs their plain versions."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     a = get_config(LM_ARCH).attention
@@ -412,7 +431,14 @@ def lm_kernel_phase(FA, SS, dev):
     def flash_case(label, bh, bkv, s, dq, dv, dtype, causal=True, window=0):
         q, k, v = (rand((bh, s, dq), dtype), rand((bkv, s, dq), dtype),
                    rand((bkv, s, dv), dtype))
+        variant = FA.plan(dq, dv, dtype, FA._aligned16(q, k, v))
+        before = dict(FA.VARIANT_LAUNCHES)
         out = FA.flash_attention(q, k, v, causal=causal, window=window)
+        ran = [n for n in FA.VARIANTS if FA.VARIANT_LAUNCHES[n] != before[n]]
+        check(ran == [variant], f"flash {label}: planned {variant}, ran {ran}")
+        if dtype == torch.bfloat16 and dq == dv == D:
+            check(variant == "wgmma", f"flash {label}: {variant} on a bf16 "
+                                      f"D = {D} case, not wgmma")
         want = FA.flash_attention_torch(q, k, v, causal=causal,
                                         window=window)
         if dtype == torch.float32:
@@ -429,38 +455,82 @@ def lm_kernel_phase(FA, SS, dev):
         check(bad == 0, f"flash {label}: {bad} elements outside {limit}, "
                         f"max |err| {err:.3e}")
         print(f"flash_attention {label} (BH {bh}/{bkv}, S {s}, Dq {dq}, Dv "
-              f"{dv}, {str(dtype)[6:]}, causal {causal}, window {window}): "
-              f"max |kernel - plain| {err:.3e} within {limit}", flush=True)
+              f"{dv}, {str(dtype)[6:]}, causal {causal}, window {window}) "
+              f"[{variant}]: max |kernel - plain| {err:.3e} within {limit}",
+              flush=True)
         return q, k, v, err
 
+    def sdpa(q, k, v):
+        """``scaled_dot_product_attention`` on the same (B, H, S, D)
+        views, GQA without copies -- the yardstick, never the port."""
+        b = SCORE_B
+        q4, k4, v4 = (t.view(b, t.shape[0] // b, t.shape[1], t.shape[2])
+                      for t in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True)
+
+    def bf16_times(label, q, k, v):
+        """The wgmma kernel (through ``flash_attention``), the PR 12
+        mma.sync kernel (private launcher, held against the plain version
+        too), SDPA and the bound, at one causal shape."""
+        ms = cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True),
+                     reps=20)
+        old = FA._launch(q, k, v, True, 0, None, "mma_sync")
+        diff = (old.float() - FA.flash_attention_torch(q, k, v).float()).abs()
+        bnd = FA.bf16_error_bound(q, k, v)
+        check(bool((diff <= bnd).all()),
+              f"flash {label}: the mma.sync kernel beyond the bf16 bound")
+        old_worst = float((diff / bnd).max())
+        del old, diff, bnd
+        old_ms = cuda_ms(lambda: FA._launch(q, k, v, True, 0, None,
+                                            "mma_sync"), reps=20)
+        lib_ms = cuda_ms(sdpa(q, k, v), reps=20)
+        bms, by = flash_bound(q, k, v, causal=True)
+        print(f"flash_attention {label} bfloat16 [wgmma]: kernel {ms:.4f} ms"
+              f" ({100 * bms / ms:.1f}% of bound {bms:.4f} ms, {by}); "
+              f"mma.sync kernel {old_ms:.4f} ms ({old_ms / ms:.2f}x the "
+              f"wgmma kernel's time; max |err| / bf16 bound "
+              f"{old_worst:.3f}); scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms (kernel / SDPA {ms / lib_ms:.3f})",
+              flush=True)
+        return dict(label=label, shape=list(q.shape) + [k.shape[0]], ms=ms,
+                    old_kernel_ms=old_ms, library_ms=lib_ms, bound_ms=bms,
+                    bound_by=by, old_kernel_err_over_bound=old_worst)
+
+    log = _build.library_path(FA.SOURCE).with_suffix(".log").read_text()
+    smem = _build.load(FA.SOURCE, FA._bind).flash_attention_wgmma_smem_bytes()
+    print(f"flash_attention_wgmma_kernel, nvcc -Xptxas -v: "
+          f"{ptxas_summary(log, 'flash_attention_wgmma_kernel')}; dynamic "
+          f"shared memory {smem} B", flush=True)
     # the path shape: B x H query heads over B x KV key/value heads
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, err = flash_case("path shape", SCORE_B * H, SCORE_B * KV,
                                   SCORE_S, D, D, dtype)
-        ms = cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True),
-                     reps=10)
         plain_ms = cuda_ms(lambda: FA.flash_attention_torch(q, k, v,
                                                             causal=True),
                            reps=2)
-        q4 = q.view(SCORE_B, H, SCORE_S, D)
-        k4 = k.view(SCORE_B, KV, SCORE_S, D)
-        v4 = v.view(SCORE_B, KV, SCORE_S, D)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=True), reps=10)
-        bms, by = flash_bound(q, k, v, causal=True)
-        print(f"flash_attention path shape {str(dtype)[6:]}: kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"scaled_dot_product_attention {lib_ms:.3f} ms, bound "
-              f"{bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound",
-              flush=True)
         if dtype == torch.bfloat16:
+            cases = [bf16_times("path shape", q, k, v)]
+            del q, k, v
+            q, k, v, _ = flash_case("prefill shape", SCORE_B * H,
+                                    SCORE_B * KV, PROMPT, D, D, dtype)
+            cases.append(bf16_times("prefill shape", q, k, v))
             rows["flash_attention"] = dict(
-                shape=list(q.shape) + [k.shape[0]], dtype="bfloat16", ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms, max_abs_err=err,
+                cases[0], dtype="bfloat16", plain_ms=plain_ms,
+                max_abs_err=err, variant="wgmma", cases=cases,
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:32")
-        del q, k, v, q4, k4, v4
+        else:
+            ms = cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True),
+                         reps=10)
+            bms, by = flash_bound(q, k, v, causal=True)
+            print(f"flash_attention path shape float32 [cuda_core]: kernel "
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"scaled_dot_product_attention "
+                  f"{cuda_ms(sdpa(q, k, v), reps=3):.3f} ms, bound "
+                  f"{bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound",
+                  flush=True)
+        del q, k, v
     for dtype in (torch.float32, torch.bfloat16):
         flash_case("ragged", 8, 2, 1000, D, D, dtype)
         flash_case("window 256", 8, 2, 1024, D, D, dtype, window=256)
@@ -507,16 +577,20 @@ def lm_kernel_phase(FA, SS, dev):
 
 def lm_counts(FA, SS) -> dict:
     return {"flash_attention": FA.LAUNCHES["flash_attention"],
+            "flash_wgmma": FA.VARIANT_LAUNCHES["wgmma"],
             "selective_scan": SS.LAUNCHES["selective_scan"],
             "plain": FA.PLAIN_CALLS["flash_attention"]
             + SS.PLAIN_CALLS["selective_scan"]}
 
 
-def check_forward_counts(counts: dict, what: str) -> None:
-    check(counts == {"flash_attention": 1, "selective_scan": LM_LAYERS - 1,
-                     "plain": 0},
-          f"{what}: launches {counts}, expected flash attention once, the "
-          f"scan {LM_LAYERS - 1} times and no plain version")
+def check_forward_counts(counts: dict, what: str, wgmma: int) -> None:
+    """One forward of layers 0-7: flash once (through the wgmma kernel
+    ``wgmma`` times: once in bf16, never in float32), the scan 7 times."""
+    check(counts == {"flash_attention": 1, "flash_wgmma": wgmma,
+                     "selective_scan": LM_LAYERS - 1, "plain": 0},
+          f"{what}: launches {counts}, expected flash attention once "
+          f"({wgmma} times the wgmma kernel), the scan {LM_LAYERS - 1} times "
+          f"and no plain version")
 
 
 def bf16_agreement(lm, params, plain_cfg, kern_cfg, toks, f32_logits):
@@ -609,7 +683,7 @@ def jamba_phases(FA, SS, dev) -> dict:
     out_k = lm.forward(params, replace(cfg32, **kern), toks)
     torch.cuda.synchronize()
     kern_s = time.perf_counter() - t
-    check_forward_counts(lm_counts(FA, SS), "float32 kernel forward")
+    check_forward_counts(lm_counts(FA, SS), "float32 kernel forward", 0)
     t = time.perf_counter()
     out_p = lm.forward(params, cfg32, toks)
     torch.cuda.synchronize()
@@ -649,7 +723,7 @@ def jamba_phases(FA, SS, dev) -> dict:
     torch.cuda.synchronize()
     score_s = [time.perf_counter() - t]
     score_counts = lm_counts(FA, SS)
-    check_forward_counts(score_counts, "scoring forward")
+    check_forward_counts(score_counts, "scoring forward", 1)
     check(logits.shape == (SCORE_B, SCORE_S, base.vocab_size)
           and logits.dtype == torch.bfloat16
           and bool(torch.isfinite(logits).all()),
@@ -679,11 +753,11 @@ def jamba_phases(FA, SS, dev) -> dict:
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t
     gen_counts = lm_counts(FA, SS)
-    check(gen_counts == {"flash_attention": 1, "selective_scan": 0,
-                         "plain": 0},
+    check(gen_counts == {"flash_attention": 1, "flash_wgmma": 1,
+                         "selective_scan": 0, "plain": 0},
           f"generation: launches {gen_counts}, expected flash attention "
-          f"once (prefill; the scan runs chunked under a cache, decode has "
-          f"no kernel) and no plain version")
+          f"once, through the wgmma kernel (prefill; the scan runs chunked "
+          f"under a cache, decode has no kernel) and no plain version")
     out = torch.cat(gen_toks, dim=1)
     check(out.shape == (SCORE_B, GEN + 1) and bool(torch.isfinite(lg).all())
           and int(out.min()) >= 0 and int(out.max()) < base.vocab_size,
@@ -982,8 +1056,9 @@ def packed_phase(modules, dev, blocked_cycles):
     torch.cuda.empty_cache()
 
 
-# what a kernel's row may carry beside the contract's keys (the GEMM's
-# chosen kernel, device times, the mma.sync kernel's times, every case)
+# what a kernel's row may carry beside the contract's keys (the chosen
+# kernel of the GEMM and of flash attention, device times, the mma.sync
+# kernels' times, every case)
 EXTRA_KEYS = ("variant", "launch_ms", "device_ms", "library_device_ms",
               "old_kernel_ms", "old_kernel_device_ms", "cases")
 

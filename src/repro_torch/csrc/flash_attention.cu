@@ -15,38 +15,54 @@
 // float32; with bfloat16 inputs the probabilities are rounded to bfloat16
 // before the product with v, as the TPU kernel does.  Scale is 1/sqrt(Dq)
 // unless given.  On the LM path: jamba's attention layer, BH = 4 x 32
-// heads over 8 KV heads, S = 2048, D = 128, bfloat16.
+// heads over 4 x 8 KV heads, S = 2048 (scoring) or 512 (prefill), D = 128,
+// bfloat16.
 //
 // What bounds it on this card: the two products, 2 Sq Sk D multiply-adds
 // (about half of that under a causal mask) against one read of q, k, v and
-// one write of o, so it is bound by arithmetic at these shapes.
+// one write of o, so it is bound by arithmetic at these shapes: the tensor
+// cores in bfloat16, the CUDA cores in float32.
 //
-// What the design does about it: two kernels, chosen from the inputs.
-// bfloat16 with Dq == Dv == 128 (the LM path) runs on the tensor
-// cores with mma.sync (see flash_attention_mma_kernel below); everything
-// else (float32, other head dims, Dv != Dq) runs on the CUDA cores.  Both:
-// one thread block per (head, 64-row query tile), heavy (late) causal
-// tiles launched first.  The block walks only
-// the 64-key tiles from the first one inside the window up to the diagonal
-// -- tiles wholly outside the mask are skipped, not computed and masked.
-// Skipping changes nothing: a row's first visited keys that are masked add
+// What the design does about it: three kernels, each with its own entry
+// point; the host's plan (kernels/flash_attention.py) picks by type, head
+// dims and alignment alone:
+//
+//   * wgmma -- bfloat16, Dq == Dv == 128, 16-byte-aligned q, k, v, o (the
+//     LM path): TMA + wgmma, warp-specialised (see
+//     flash_attention_wgmma_kernel below).
+//   * cuda_core -- everything else (float32, other head dims, Dv != Dq,
+//     unaligned bfloat16): one thread block per (head, 64-row query tile),
+//     heavy (late) causal tiles launched first.  Each of the 256 threads
+//     owns a 4 x 4 block of the score tile and a 4-row strip of the output
+//     tile; q and k tiles sit transposed in shared memory so each d step is
+//     two 16-byte loads for 16 FMAs (float32 arithmetic), and the
+//     probability tile reuses the k tile's shared memory, so two blocks
+//     fit on an SM at D = 128.  Row max and sum are reduced with warp
+//     shuffles.  Ragged Sq and Sk are bounds-checked; there is no padding.
+//   * mma_sync -- the tensor-core kernel that served the LM path before the
+//     wgmma one (mma.sync m16n8k16, 64-row query tiles, synchronous k and v
+//     copies); reachable only through its own entry point, kept as the
+//     timed yardstick of the wgmma kernel.
+//
+// All three: the softmax runs in base 2 with scale * log2(e) folded in,
+// and a block walks only the key tiles from the first one inside the
+// window up to the diagonal -- tiles wholly outside the mask are skipped,
+// not computed and masked.  Skipping changes nothing: masked scores are
+// NEG, not -inf, so a row's first visited keys that are masked add
 // exp(NEG - NEG) = 1 terms, which the first valid key multiplies by
-// exp(NEG - m) = 0, exactly as in the TPU kernel.  Each of the 256 threads
-// owns a 4 x 4 block of the score tile and a 4-row strip of the output
-// tile; q and k tiles sit transposed in shared memory so each d step is
-// two 16-byte loads for 16 FMAs (float32 arithmetic), and the probability
-// tile reuses the k tile's shared memory, so two blocks fit on an SM at
-// D = 128.  Row max and sum are reduced with warp shuffles and the softmax
-// runs in base 2.  Ragged Sq and Sk are bounds-checked; there is no
-// padding.  wgmma, TMA and software pipelining are not used yet.
+// exp(NEG - m) = 0, exactly as in the TPU kernel; l is flushed at 1e-30,
+// as there.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 #define NEG_F (-1e18f)
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BKT = 64;       // keys per tile
@@ -251,7 +267,7 @@ int launch(const T* q, const T* k, const T* v, T* o, int bh, int group,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 with Dq == Dv == 128 (the LM path): tensor cores via mma.sync
+// bf16 with Dq == Dv == 128: tensor cores via mma.sync (the yardstick)
 // ---------------------------------------------------------------------------
 //
 // Four warps per block, 16 query rows each.  A warp keeps its q rows as
@@ -454,6 +470,438 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 with Dq == Dv == 128, 16-byte aligned (the LM path): TMA + wgmma,
+// warp-specialised
+// ---------------------------------------------------------------------------
+//
+// A persistent grid of at most one 384-thread block per SM walks the work
+// items -- (128-row query tile, query head) -- heaviest causal tiles first,
+// heads fastest, so the items in flight share key/value heads in the L2.
+// A producer warpgroup (registers lowered by setmaxnreg) has one thread
+// issue TMA; two consumer warpgroups (registers raised) own 64 query rows
+// each.  q, k, v and o are read and written through 3-D tensor maps (D, S,
+// heads) in the 128-byte swizzle, as boxes of 64 columns (the widest a
+// swizzled box may be): TMA zero-fills rows past S within a head and clips
+// stores at Sq, where a 2-D (heads * S, D) map would read, and overwrite,
+// the next head's rows.  Shared memory (192 KB): two q tiles (128 x 128,
+// 32 KB each, one per item in turn, so the next item's q loads under this
+// one) and a ring of STAGES 128-key tiles of k and of v (32 KB each), every
+// slot with a full and an empty mbarrier; the ring runs on across items.
+// Per key tile, a consumer warpgroup computes S = q k^T with wgmma
+// m64n128k16 (both operands K-major in shared memory, 8 k steps over D; S
+// in 64 float32 registers a thread), masks it only where the tile crosses
+// the diagonal, the window's edge or Sk, runs the online softmax on the
+// accumulator fragments (row max and sum reduced across the quad), rounds P
+// to bf16 pairs in registers -- a 16-column slice of the accumulator is
+// laid out as a wgmma A fragment -- and adds P v with wgmma m64n128k16 from
+// registers, v read N-major through the transpose bit.  The two warpgroups
+// take turns issuing their products, so one's softmax runs under the
+// other's products.  The epilogue divides by l, stages the warpgroup's 64
+// rows in its half of the item's q buffer (its q k^T are done) and writes
+// them with TMA stores that drain under the next item.
+//
+// Measured and rejected on an H100 (PERF.md): issuing the next tile's
+// q k^T with this tile's P v and running the softmax under them (no
+// faster, and S, P and o then need registers at once); one block per item
+// (slower: every block filled and drained its pipeline alone).
+
+namespace wgf {
+constexpr int HD = 128;                    // Dq == Dv
+constexpr int BQ = 128;                    // query rows per work item
+constexpr int BK = 128;                    // keys per tile
+constexpr int STAGES = 2;                  // k and v ring depth
+constexpr int THREADS = 384;               // producer + 2 consumer warpgroups
+constexpr int BOX_COLS = 64;               // 128-byte-swizzled box width
+constexpr int BOX_BYTES = 128 * 128;       // 128 rows x 128 bytes
+constexpr int TILE_BYTES = 2 * BOX_BYTES;  // 128 x 128 bf16, two boxes
+constexpr int K_OFF = 2 * TILE_BYTES;      // two q tiles first
+constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
+constexpr int BAR_OFF = V_OFF + STAGES * TILE_BYTES;
+constexpr int SMEM_BYTES = BAR_OFF + 8 * (4 + 4 * STAGES) + 1024;
+}  // namespace wgf
+
+// exp2 on the special-function unit, one instruction (2^-22 relative
+// error; subnormal results flush to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// scale, mask (MASK: the tile crosses the diagonal, the window's edge or
+// Sk) and the online softmax of one 64 x 128 score tile in place, on the
+// accumulator fragment: s[4j + 2h + e] is row `row` + 8h, key `col` + 8j + e.
+// Updates the running max m and sum l and returns in alpha the factor
+// exp2(m_old - m_new) by which each row's accumulator is to be rescaled.
+template <bool MASK>
+__device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
+                                               float (&l)[2], float (&alpha)[2],
+                                               int row, int col, int Sk,
+                                               int causal, int window,
+                                               float scale2) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    float mx = NEG_F;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * h + e];
+        if (MASK) {
+          const int c = col + 8 * j + e;
+          const bool ok = c < Sk && (!causal || c <= r) &&
+                          (window <= 0 || c > r - window);
+          x = ok ? x * scale2 : NEG_F;
+        } else {
+          x *= scale2;
+        }
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[h], mx);
+    alpha[h] = exp2_approx(m[h] - m_new);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * h + e];
+        x = exp2_approx(x - m_new);
+        rs += x;
+      }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    l[h] = l[h] * alpha[h] + rs;
+    m[h] = m_new;
+  }
+}
+
+// the softmax of the tile of keys c0 .. c0 + 127 for the warpgroup's rows
+// lo .. lo + 63, masked only if the tile crosses the diagonal, the window's
+// edge or Sk for one of them
+__device__ __forceinline__ void tile_softmax(float (&s)[64], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             int row, int col, int c0, int lo,
+                                             int Sk, int causal, int window,
+                                             float scale2) {
+  const bool inside = c0 + wgf::BK <= Sk &&
+                      (!causal || c0 + wgf::BK - 1 <= lo) &&
+                      (window <= 0 || c0 > lo + 63 - window);
+  if (inside)
+    online_softmax<false>(s, m, l, alpha, row, c0 + col, Sk, causal, window,
+                          scale2);
+  else
+    online_softmax<true>(s, m, l, alpha, row, c0 + col, Sk, causal, window,
+                         scale2);
+}
+
+// o's rows rescaled by alpha (the fragment layout of online_softmax)
+__device__ __forceinline__ void rescale(float (&o)[64],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e / 2];
+}
+
+// P (the softmax tile, rounded to bf16 pairs) as the A fragments of the 8
+// k steps over the tile's keys: a 16-column slice of the accumulator is
+// laid out as a wgmma A fragment
+__device__ __forceinline__ void pack_p(uint32_t (&p)[8][4],
+                                       const float (&s)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// S = q k^T (64 x 128 keys): 8 k steps over D, both operands K-major; a
+// step is 32 bytes along the swizzled rows of box kk / 4 (16 KB apart)
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q,
+                                         uint32_t k) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < wgf::HD / 16; ++kk) {
+    const uint32_t off = (kk / 4) * wgf::BOX_BYTES + (kk % 4) * 32;
+    const uint64_t dq = sw128_desc(q + off, 16, 1024);
+    const uint64_t dk = sw128_desc(k + off, 16, 1024);
+    if (kk == 0)
+      wgmma_ss_set<0>(s, dq, dk);
+    else
+      wgmma_ss<0>(s, dq, dk, 1);
+  }
+  wgmma_commit();
+}
+
+// o += P v: v's tile is (keys, D), N-major, read through the transpose bit;
+// k step kk is 16 key rows, 2048 bytes down both 64-column boxes
+__device__ __forceinline__ void issue_pv(float (&o)[64],
+                                         const uint32_t (&p)[8][4],
+                                         uint32_t v) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < wgf::BK / 16; ++kk)
+    wgmma_rs<1>(o, p[kk], sw128_desc(v + kk * 2048, wgf::BOX_BYTES, 1024),
+                1);
+  wgmma_commit();
+}
+
+// work item w of the persistent grid: query tile qtile of head bh, the
+// heaviest (latest) causal tiles first, heads fastest, so the items in
+// flight share key/value heads in the L2; and the key tiles its rows see
+// (tiles wholly outside the mask are skipped, as in the kernels above)
+struct Item {
+  int bh, kvh, r0, first, ntiles;   // tile i's first key: first + i * BK
+  __device__ __forceinline__ Item(int w, int bh_count, int group, int Sq,
+                                  int Sk, int causal, int window) {
+    const int qtiles = (Sq + wgf::BQ - 1) / wgf::BQ;
+    bh = w % bh_count;
+    kvh = bh / group;
+    r0 = (qtiles - 1 - w / bh_count) * wgf::BQ;
+    const int kbeg = window > 0 ? max(0, r0 - window + 1) : 0;
+    const int kend = causal ? min(Sk, r0 + wgf::BQ) : Sk;
+    first = kbeg - kbeg % wgf::BK;
+    ntiles = (kend - first + wgf::BK - 1) / wgf::BK;
+  }
+};
+
+__global__ void __launch_bounds__(wgf::THREADS, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
+                             const __grid_constant__ CUtensorMap map_o,
+                             int bh_count, int group, int Sq, int Sk,
+                             int causal, int window, float scale2) {
+  constexpr int STAGES = wgf::STAGES, BOX_COLS = wgf::BOX_COLS;
+  constexpr int BOX_BYTES = wgf::BOX_BYTES, TILE_BYTES = wgf::TILE_BYTES;
+  extern __shared__ uint8_t smem_fa[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to that
+  const uint32_t base = (smem_u32(smem_fa) + 1023u) & ~1023u;
+  auto qs = [&](int b) { return base + b * TILE_BYTES; };
+  auto ks = [&](int s) { return base + wgf::K_OFF + s * TILE_BYTES; };
+  auto vs = [&](int s) { return base + wgf::V_OFF + s * TILE_BYTES; };
+  const uint32_t bars = base + wgf::BAR_OFF;
+  auto q_full = [&](int b) { return bars + 8 * b; };
+  auto q_empty = [&](int b) { return bars + 8 * (2 + b); };
+  auto k_full = [&](int s) { return bars + 8 * (4 + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (4 + STAGES + s); };
+  auto v_full = [&](int s) { return bars + 8 * (4 + 2 * STAGES + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (4 + 3 * STAGES + s); };
+  const int items = bh_count * ((Sq + wgf::BQ - 1) / wgf::BQ);
+  const int wgid = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(q_full(b), 1);
+      mbar_init(q_empty(b), 2);     // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 8);
+      mbar_init(v_empty(s), 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wgid == 0) {
+    // producer: one thread loads each item's q into the q buffer of the
+    // item before last, once its o stores have read it, and keeps the k
+    // and v rings full across items
+    setmaxnreg_dec<40>();
+    if (t != 0) return;
+    int g = 0, n = 0;               // ring tiles and items so far
+    for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
+      const Item it(w, bh_count, group, Sq, Sk, causal, window);
+      const int b = n % 2;
+      mbar_wait(q_empty(b), ((n / 2) & 1) ^ 1);
+      mbar_expect_tx(q_full(b), TILE_BYTES);
+      for (int j = 0; j < 2; ++j)
+        tma_load_3d(qs(b) + j * BOX_BYTES, &map_q, j * BOX_COLS, it.r0, it.bh,
+                    q_full(b));
+      for (int i = 0; i < it.ntiles; ++i, ++g) {
+        const int s = g % STAGES, phase = (g / STAGES) & 1;
+        const int c0 = it.first + i * wgf::BK;
+        mbar_wait(k_empty(s), phase ^ 1);
+        mbar_expect_tx(k_full(s), TILE_BYTES);
+        for (int j = 0; j < 2; ++j)
+          tma_load_3d(ks(s) + j * BOX_BYTES, &map_k, j * BOX_COLS, c0, it.kvh,
+                      k_full(s));
+        mbar_wait(v_empty(s), phase ^ 1);
+        mbar_expect_tx(v_full(s), TILE_BYTES);
+        for (int j = 0; j < 2; ++j)
+          tma_load_3d(vs(s) + j * BOX_BYTES, &map_v, j * BOX_COLS, c0, it.kvh,
+                      v_full(s));
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup c owns rows 64c .. 64c + 63 of each item's tile;
+  // thread t holds rows rw and rw + 8 of them, key columns 2 (t % 4) + 8j
+  // (+ 1).  Per key tile: S = q k^T, the softmax, o += P v.  The two
+  // warpgroups take turns on the tensor cores (named barriers PING + c): a
+  // turn is one P v and the next q k^T, and passes when they are issued, so
+  // one warpgroup's softmax runs under the other's products.  Within a
+  // warpgroup the products wait for each other: S, P and o never need
+  // registers at once, so the products are not serialised for lack of them.
+  setmaxnreg_inc<232>();
+  const int c = wgid - 1;
+  const int warp = t / 32, lane = t % 32;
+  const int rw = 16 * warp + lane / 4, col = 2 * (lane % 4);
+  float o[64], s_acc[64];
+  float m[2], l[2], alpha[2];
+  uint32_t p[8][4];
+  constexpr int PING = 3;            // named barriers 3 and 4 (1, 2: epilogue)
+  auto my_turn = [&]() { named_bar_sync(PING + c, 256); };
+  auto your_turn = [&]() { named_bar_arrive(PING + 1 - c, 256); };
+
+  if (c == 1) your_turn();           // warpgroup 0 goes first
+  int g = 0, n = 0;
+  for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
+    const Item it(w, bh_count, group, Sq, Sk, causal, window);
+    const int lo = it.r0 + 64 * c, row = lo + rw;
+    const uint32_t qa = qs(n % 2) + c * 64 * 128;  // its rows of q's boxes
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    m[0] = m[1] = NEG_F;
+    l[0] = l[1] = 0.f;
+
+    mbar_wait(q_full(n % 2), (n / 2) & 1);
+    mbar_wait(k_full(g % STAGES), (g / STAGES) & 1);
+    my_turn();
+    issue_qk(s_acc, qa, ks(g % STAGES));
+    your_turn();
+    wgmma_wait<0>();
+    fence_regs(s_acc);
+    if (lane == 0) mbar_arrive(k_empty(g % STAGES));
+    // the item before's o stores have read its q buffer (they had this
+    // whole tile's time): the producer may load the item after next there
+    if (t == 0 && n > 0) {
+      tma_store_wait_read<0>();
+      mbar_arrive(q_empty((n - 1) % 2));
+    }
+    tile_softmax(s_acc, m, l, alpha, row, col, it.first, lo, Sk, causal,
+                 window, scale2);
+    pack_p(p, s_acc);
+    for (int i = 1; i < it.ntiles; ++i) {
+      const int s = (g + i) % STAGES, phase = ((g + i) / STAGES) & 1;
+      const int sp = (g + i - 1) % STAGES;
+      const int phase_p = ((g + i - 1) / STAGES) & 1;
+      mbar_wait(v_full(sp), phase_p);
+      mbar_wait(k_full(s), phase);
+      my_turn();
+      issue_pv(o, p, vs(sp));
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(v_empty(sp));
+      issue_qk(s_acc, qa, ks(s));
+      your_turn();
+      wgmma_wait<0>();
+      fence_regs(s_acc);
+      if (lane == 0) mbar_arrive(k_empty(s));
+      tile_softmax(s_acc, m, l, alpha, row, col, it.first + i * wgf::BK, lo,
+                   Sk, causal, window, scale2);
+      rescale(o, alpha);
+      pack_p(p, s_acc);
+    }
+    g += it.ntiles;
+    {
+      const int sp = (g - 1) % STAGES;
+      mbar_wait(v_full(sp), ((g - 1) / STAGES) & 1);
+      my_turn();
+      issue_pv(o, p, vs(sp));
+      your_turn();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(v_empty(sp));
+    }
+
+    // epilogue: o / l cast to bf16 into this warpgroup's rows of the item's
+    // q buffer (its q k^T are done; 128-byte swizzle: 16-byte chunk j % 8
+    // of row r sits at chunk (j % 8) ^ (r % 8)), then two TMA stores,
+    // clipped at Sq, that drain under the next item
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rw + 8 * h;
+      const float lv = fmaxf(l[h], 1e-30f);   // as the TPU kernel's flush
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const uint32_t at = qa + (j / 8) * BOX_BYTES + r * 128 +
+                            (((j % 8) ^ (r % 8)) * 16) + 4 * (lane % 4);
+        const uint32_t bits =
+            pack_bf16(o[4 * j + 2 * h] / lv, o[4 * j + 2 * h + 1] / lv);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(bits)
+                     : "memory");
+      }
+    }
+    fence_proxy_async();
+    warpgroup_sync(1 + c);
+    if (t == 0) {
+      for (int j = 0; j < 2; ++j)
+        tma_store_3d(&map_o, qa + j * BOX_BYTES, j * BOX_COLS, lo, it.bh);
+      tma_store_commit();
+    }
+  }
+  // warpgroup 1's last turn goes to warpgroup 0, which takes it here; the
+  // last stores have read their buffers before the block exits
+  if (c == 0) my_turn();
+  if (t == 0) tma_store_wait_read<0>();
+}
+
+// a contiguous (heads, rows, 128) bf16 tensor as a 3-D map (128, rows,
+// heads), boxes of 64 columns x box_rows rows x 1 head in the 128-byte
+// swizzle; loads zero-fill past every bound, stores clip
+bool encode_heads(CUtensorMap* map, const void* ptr, int heads, int rows,
+                  int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t row_bytes = wgf::HD * 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)wgf::HD, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {row_bytes, row_bytes * (cuuint64_t)rows};
+  const cuuint32_t box[3] = {(cuuint32_t)wgf::BOX_COLS, (cuuint32_t)box_rows,
+                             1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 int bh, int group, int Sq, int Sk, int causal, int window,
+                 float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mo;
+  if (!encode_heads(&mq, q, bh, Sq, wgf::BQ) ||
+      !encode_heads(&mk, k, bh / group, Sk, wgf::BK) ||
+      !encode_heads(&mv, v, bh / group, Sk, wgf::BK) ||
+      !encode_heads(&mo, o, bh, Sq, 64))
+    return (int)cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_attention_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wgf::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  // persistent: one block per SM at most, each walking items w, w + grid..
+  const int64_t items = (int64_t)bh * ((Sq + wgf::BQ - 1) / wgf::BQ);
+  if (items > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int grid = items < sms ? (int)items : sms;
+  flash_attention_wgmma_kernel<<<grid, wgf::THREADS, wgf::SMEM_BYTES,
+                                 stream>>>(mq, mk, mv, mo, bh, group, Sq, Sk,
+                                           causal, window, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int dispatch(const T* q, const T* k, const T* v, T* o, int bh, int group,
              int Sq, int Sk, int Dq, int Dv, int causal, int window,
@@ -473,10 +921,14 @@ int dispatch(const T* q, const T* k, const T* v, T* o, int bh, int group,
 
 extern "C" {
 
-// q (bh, Sq, Dq), k (bh / group, Sk, Dq), v (bh / group, Sk, Dv),
-// o (bh, Sq, Dv): contiguous, on the device of `stream`.  Dq, Dv <= 128,
-// bh <= 65535; with causal or window > 0, Sq == Sk (the wrapper checks).
-// Returns cudaGetLastError() after the launch.
+// Every entry point: q (bh, Sq, Dq), k (bh / group, Sk, Dq), v (bh / group,
+// Sk, Dv), o (bh, Sq, Dv): contiguous, on the device of `stream`; bh <=
+// 65535; with causal or window > 0, Sq == Sk (the wrapper checks).
+// Returns cudaGetLastError() after the launch, or the error that kept it
+// from launching (cudaErrorInvalidValue for inputs the kernel does not
+// take).
+
+// cuda_core, float32: Dq, Dv <= 128.
 int flash_attention_f32(const float* q, const float* k, const float* v,
                         float* o, int bh, int group, int Sq, int Sk, int Dq,
                         int Dv, int causal, int window, float scale,
@@ -485,21 +937,44 @@ int flash_attention_f32(const float* q, const float* k, const float* v,
                          window, scale, stream);
 }
 
+// cuda_core, bfloat16: Dq, Dv <= 128.
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, int bh, int group, int Sq, int Sk, int Dq,
                          int Dv, int causal, int window, float scale,
                          void* stream) {
   using bf = __nv_bfloat16;
-  const bf *qp = (const bf*)q, *kp = (const bf*)k, *vp = (const bf*)v;
-  cudaStream_t s = (cudaStream_t)stream;
-  // the tensor-core kernel reads k and v rows as 16-byte vectors
+  return dispatch<bf>((const bf*)q, (const bf*)k, (const bf*)v, (bf*)o, bh,
+                      group, Sq, Sk, Dq, Dv, causal, window, scale, stream);
+}
+
+// wgmma, bfloat16: Dq == Dv == 128, q, k, v, o 16-byte aligned.
+int flash_attention_bf16_wgmma(const void* q, const void* k, const void* v,
+                               void* o, int bh, int group, int Sq, int Sk,
+                               int Dq, int Dv, int causal, int window,
+                               float scale, void* stream) {
   const bool aligned =
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15) == 0;
-  if (aligned && Dq == Dv && Dq == 128)
-    return launch_mma<128>(qp, kp, vp, (bf*)o, bh, group, Sq, Sk, causal,
-                           window, scale, s);
-  return dispatch<bf>(qp, kp, vp, (bf*)o, bh, group, Sq, Sk, Dq, Dv, causal,
-                      window, scale, stream);
+  if (!aligned || Dq != wgf::HD || Dv != wgf::HD)
+    return (int)cudaErrorInvalidValue;
+  return launch_wgmma(q, k, v, o, bh, group, Sq, Sk, causal, window, scale,
+                      (cudaStream_t)stream);
+}
+
+// The wgmma kernel's dynamic shared memory, bytes.
+int flash_attention_wgmma_smem_bytes(void) { return wgf::SMEM_BYTES; }
+
+// mma_sync, bfloat16: Dq == Dv == 128, q, k, v, o 16-byte aligned.
+int flash_attention_bf16_mma_sync(const void* q, const void* k,
+                                  const void* v, void* o, int bh, int group,
+                                  int Sq, int Sk, int Dq, int Dv, int causal,
+                                  int window, float scale, void* stream) {
+  using bf = __nv_bfloat16;
+  const bool aligned =
+      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15) == 0;
+  if (!aligned || Dq != 128 || Dv != 128) return (int)cudaErrorInvalidValue;
+  return launch_mma<128>((const bf*)q, (const bf*)k, (const bf*)v, (bf*)o, bh,
+                         group, Sq, Sk, causal, window, scale,
+                         (cudaStream_t)stream);
 }
 
 }  // extern "C"

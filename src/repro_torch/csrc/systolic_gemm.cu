@@ -83,12 +83,14 @@
 // cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint (no -lcuda),
 // and passed as __grid_constant__ kernel parameters.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 typedef __nv_bfloat16 bf16;
 
@@ -434,64 +436,8 @@ int launch_f32(const float* A, const float* B, OutT* C, int M, int K, int N,
 }
 
 // ---------------------------------------------------------------------------
-// Hopper primitives: mbarriers, TMA, wgmma, cp.async
+// the wgmma kernel's epilogue store (the Hopper primitives are in hopper.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// spin until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// one 2-D box of a tensor map into shared memory; the barrier counts its
-// bytes (the whole box, zero-filled where it lies out of bounds)
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(bar) : "memory");
-}
-
-// one 2-D box from shared memory into a tensor map (clipped at its bounds)
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
-                                             uint32_t src, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
-      " [%1];\n" ::"l"((uint64_t)map), "r"(src), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// barrier of the 128 threads of one warpgroup (id 0 is __syncthreads')
-__device__ __forceinline__ void warpgroup_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
 
 // (x, y) cast to the output type, 8 or 4 bytes into shared memory
 __device__ __forceinline__ void st_shared_out(uint32_t addr, float x, float y,
@@ -505,96 +451,6 @@ __device__ __forceinline__ void st_shared_out(uint32_t addr, float x, float y,
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(bits) : "f"(y), "f"(x));
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(bits)
                : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile in the 128-byte swizzle: start
-// address, leading and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma instructions
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D (64 x 256, float32) (+)= A (64 x 16, K-major) B (16 x 256, N-major:
-// the transpose bit); scale_d = 0 overwrites D
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
-                                                 uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-      "%127}, %128, %129, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// 16 bytes from global into shared memory, zero-filled when src_bytes = 0
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -656,13 +512,13 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       mbar_init(full(s), 1);
       mbar_init(empty(s), 8);       // one arrival per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
   if (group == 0) {
     // producer: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    setmaxnreg_dec<40>();
     if (t != 0) return;
     int s = 0, phase = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -684,7 +540,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 
   // consumers: warpgroup c holds rows 64c .. 64c + 63 of the tile
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  setmaxnreg_inc<232>();
   const int c = group - 1;
   const int warp = t / 32, lane = t % 32;
   float acc[128];
@@ -699,7 +555,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       mbar_wait(full(s), phase);
       const uint32_t a_src = ring + s * STAGE_BYTES + c * (64 * BK * 2);
       const uint32_t b_src = ring + s * STAGE_BYTES + A_BYTES;
-      fence_acc(acc);
+      fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
@@ -708,18 +564,18 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         // 8 KB apart, k16 steps two 8-row groups
         const uint64_t da = sw128_desc(a_src + kk * 32, 16, 1024);
         const uint64_t db = sw128_desc(b_src + kk * 2048, B_BOX_BYTES, 1024);
-        wgmma_m64n256k16(acc, da, db, (kt | kk) != 0);
+        wgmma_ss<1>(acc, da, db, (kt | kk) != 0);
       }
       wgmma_commit();
       // the group before this one is done: hand its stage back
       wgmma_wait<1>();
-      fence_acc(acc);
+      fence_regs(acc);
       if (kt > 0 && lane == 0) mbar_arrive(empty(prev));
       prev = s;
       if (++s == STAGES) { s = 0; phase ^= 1; }
     }
     wgmma_wait<0>();
-    fence_acc(acc);
+    fence_regs(acc);
     if (lane == 0) mbar_arrive(empty(prev));
 
     // epilogue: thread t holds rows r and r + 8 of each 8-column group.
@@ -733,8 +589,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     for (int q = 0; q < BN / COLS; ++q) {
       const uint32_t buf = epi + (2 * c + q % 2) * wg::EPI_BYTES;
       // the store that last read this buffer, two chunks ago, is done
-      if (t == 0)
-        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+      if (t == 0) tma_store_wait_read<1>();
       warpgroup_sync(1 + c);
 #pragma unroll
       for (int jj = 0; jj < COLS / 8; ++jj) {
@@ -754,16 +609,16 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         }
       }
       // the generic-proxy writes are visible to the TMA unit, then store
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_proxy_async();
       warpgroup_sync(1 + c);
       if (t == 0) {
         tma_store_2d(&map_c, buf, tn * BN + q * COLS, tm * BM + 64 * c);
-        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        tma_store_commit();
       }
     }
   }
   // the last stores have read their buffers before the block exits
-  if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  if (t == 0) tma_store_wait_read<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -938,32 +793,6 @@ gemm_splitk_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
 // ---------------------------------------------------------------------------
 // host side of the new kernels
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, found once through the runtime
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 template <typename T> constexpr CUtensorMapDataType map_type();
 template <> constexpr CUtensorMapDataType map_type<bf16>() {

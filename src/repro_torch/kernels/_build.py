@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels of ``repro_torch/csrc``.
 
 Every ``csrc/*.cu`` has a plain C interface (no PyTorch headers), so
-``nvcc`` builds it into a shared library in seconds.  The library goes
-into ``build/repro_torch/`` at the repository root, named by a hash of the
-source and the flags, at first use; what nvcc printed (the ``-Xptxas -v``
-register and shared-memory summary) is kept beside it with the suffix
-``.log``.  ``load`` opens it with ``ctypes`` once per process.
+``nvcc`` builds it into a shared library in seconds.  A source may include
+the shared headers ``csrc/*.cuh`` (``-I`` points at ``csrc``).  The library
+goes into ``build/repro_torch/`` at the repository root, named by a hash
+of the source, every shared header and the flags, at first use -- so
+editing a header rebuilds every library; what nvcc printed (the
+``-Xptxas -v`` register and shared-memory summary) is kept beside it with
+the suffix ``.log``.  ``load`` opens it with ``ctypes`` once per process.
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ import threading
 from pathlib import Path
 from typing import Callable, Dict
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load",
-           "launch_check"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build",
+           "load", "launch_check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -43,21 +45,30 @@ def _nvcc() -> str:
                        "csrc/*.cu at first use and need the CUDA toolkit")
 
 
+def library_path(source: Path) -> Path:
+    """Where ``build`` puts the library of ``source``: its name hashes the
+    source, every ``csrc/*.cuh`` and the flags."""
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}_{digest.hexdigest()[:16]}.so"
+
+
 def build(source: Path) -> Path:
     """Compile ``source`` into ``build/repro_torch/<stem>_<hash>.so``
-    (skipped when a library for this exact source and flags exists) and
-    return its path.  The library and its ``.log`` are written under
-    temporary names and renamed into place, the library last, so
+    (skipped when a library for this exact source, headers and flags
+    exists) and return its path.  The library and its ``.log`` are written
+    under temporary names and renamed into place, the library last, so
     concurrent builders never load a half-written file."""
-    src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{source.stem}_{tag}.so"
+    out = library_path(source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+                           str(source)],
                           capture_output=True, text=True)
     log = (proc.stdout + proc.stderr).strip()
     if proc.returncode != 0:

@@ -17,14 +17,25 @@ here is the port of ``ref.flash_attention_ref`` plus the window).
 
 Bound on the H100: ``2 Sq Sk D`` multiply-adds (about half under a causal
 mask) against one read of q, k, v and one write of o — compute-bound at the
-LM path's shapes.  Two kernels share the one entry point, chosen from the
-inputs: bf16 with ``Dq == Dv == 128`` and 16-byte-aligned tensors
-runs on the tensor cores (``mma.sync``), everything else on the CUDA
-cores.  The kernel source explains the design.
+LM path's shapes.  The kernel source explains the design.
 
-Dispatch: a CUDA tensor launches the kernel or raises — there is no
-fallback; only CPU tensors take the plain version.  ``LAUNCHES`` and
-``PLAIN_CALLS`` count both.
+Dispatch: a CUDA tensor launches a kernel or raises — there is no
+fallback; only CPU tensors take the plain version.  Which kernel runs is
+decided by ``plan`` from the type, the head dims and the pointers'
+alignment alone:
+
+* ``"wgmma"``: bf16 with ``Dq == Dv == 128`` and q, k, v 16-byte aligned
+  (what TMA can take; the output is allocated aligned) — TMA + ``wgmma``,
+  warp-specialised (the LM path of jamba, olmo-1b, olmoe, deepseek-moe and
+  mistral-large);
+* ``"cuda_core"``: everything else — float32, other head dims, ``Dv !=
+  Dq``, unaligned bf16 — on the CUDA cores.
+
+A third kernel, ``"mma_sync"`` (the tensor-core kernel that served the LM
+path before the ``wgmma`` one), is reached only through the private
+``_launch``, as the timed yardstick.  ``LAUNCHES`` counts every launch,
+``VARIANT_LAUNCHES`` the launches of each kernel, ``PLAIN_CALLS`` the
+plain version's calls.
 """
 
 from __future__ import annotations
@@ -38,24 +49,44 @@ import torch
 
 from . import _build
 
-__all__ = ["NEG", "LAUNCHES", "PLAIN_CALLS", "reset_counts",
-           "flash_attention", "flash_attention_torch", "bf16_error_bound",
-           "build"]
+__all__ = ["NEG", "LAUNCHES", "PLAIN_CALLS", "VARIANT_LAUNCHES", "VARIANTS",
+           "plan", "reset_counts", "flash_attention",
+           "flash_attention_torch", "bf16_error_bound", "build"]
 
 NEG = -1e18
 MAX_HEAD_DIM = 128     # the widest head of a ported config
+WGMMA_HEAD_DIM = 128   # the wgmma kernel's Dq == Dv
+DTYPES = (torch.float32, torch.bfloat16)
 
+VARIANTS = ("wgmma", "cuda_core", "mma_sync")
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+VARIANT_LAUNCHES: Dict[str, int] = {v: 0 for v in VARIANTS}
 PLAIN_CALLS: Dict[str, int] = {"flash_attention": 0}
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 
 
 def reset_counts() -> None:
-    """Zero the launch and plain-call counters."""
-    for d in (LAUNCHES, PLAIN_CALLS):
+    """Zero the launch, per-kernel and plain-call counters."""
+    for d in (LAUNCHES, VARIANT_LAUNCHES, PLAIN_CALLS):
         for k in d:
             d[k] = 0
+
+
+def plan(dq: int, dv: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The kernel for attention with head dims ``dq``, ``dv`` over
+    ``dtype`` inputs; ``aligned``: q, k and v start on 16-byte boundaries.
+    Type, head dims and alignment decide, nothing else."""
+    if dtype not in DTYPES:
+        raise TypeError(f"flash_attention: no kernel for {dtype}")
+    if (dtype == torch.bfloat16 and dq == dv == WGMMA_HEAD_DIM
+            and aligned):
+        return "wgmma"
+    return "cuda_core"
+
+
+def _aligned16(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _check_shapes(q, k, v, causal: bool, window: int) -> int:
@@ -136,22 +167,31 @@ def build() -> Path:
     return _build.build(SOURCE)
 
 
+# the library's entry point of each kernel (cuda_core: by input type)
+ENTRY_POINTS = {"wgmma": "flash_attention_bf16_wgmma",
+                "mma_sync": "flash_attention_bf16_mma_sync",
+                ("cuda_core", torch.float32): "flash_attention_f32",
+                ("cuda_core", torch.bfloat16): "flash_attention_bf16"}
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name in ("flash_attention_f32", "flash_attention_bf16"):
+    for name in ENTRY_POINTS.values():
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, p]
         fn.restype = i
+    lib.flash_attention_wgmma_smem_bytes.argtypes = []
+    lib.flash_attention_wgmma_smem_bytes.restype = i
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Attention over q (BH, Sq, Dq), k (BKV, Sk, Dq), v (BKV, Sk, Dv) ->
-    (BH, Sq, Dv) in q's dtype.  CUDA tensors launch the kernel (all
-    float32 or all bfloat16, contiguous, one device, Dq and Dv <= 128);
-    CPU tensors take ``flash_attention_torch``."""
-    group = _check_shapes(q, k, v, causal, window)
+    (BH, Sq, Dv) in q's dtype.  CUDA tensors launch the kernel that
+    ``plan`` picks (all float32 or all bfloat16, contiguous, one device,
+    Dq and Dv <= 128); CPU tensors take ``flash_attention_torch``."""
+    _check_shapes(q, k, v, causal, window)
     if all(t.device.type == "cpu" for t in (q, k, v)):
         PLAIN_CALLS["flash_attention"] += 1
         return flash_attention_torch(q, k, v, causal=causal, window=window,
@@ -162,19 +202,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for t in (q, k, v):
         if t.device != dev:
             raise ValueError("flash_attention: tensors on different devices")
-        if t.dtype != q.dtype or t.dtype not in (torch.float32,
-                                                 torch.bfloat16):
+        if t.dtype != q.dtype or t.dtype not in DTYPES:
             raise TypeError(f"flash_attention: expects q, k, v all float32 "
                             f"or all bfloat16, got {q.dtype}, {k.dtype}, "
                             f"{v.dtype}")
         if not t.is_contiguous():
             raise ValueError("flash_attention: expects contiguous tensors")
+    variant = plan(q.shape[2], v.shape[2], q.dtype, _aligned16(q, k, v))
+    return _launch(q, k, v, causal, window, scale, variant)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int, scale: Optional[float], variant: str
+            ) -> torch.Tensor:
+    """Launch kernel ``variant`` on checked CUDA tensors.  Private:
+    ``flash_attention`` passes the kernel ``plan`` picks; timing scripts
+    and the card tests pass ``"mma_sync"`` to run that kernel on the same
+    inputs."""
+    group = _check_shapes(q, k, v, causal, window)
     bh, sq, dq = q.shape
     sk, dv = k.shape[1], v.shape[2]
     if max(dq, dv) > MAX_HEAD_DIM or bh > 65535:
         raise ValueError(f"flash_attention: the kernel takes head dims <= "
                          f"{MAX_HEAD_DIM} and BH <= 65535, got Dq={dq}, "
                          f"Dv={dv}, BH={bh}")
+    dev = q.device
     out = torch.empty((bh, sq, dv), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
@@ -183,13 +235,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if scale is None:
         scale = 1.0 / math.sqrt(dq)
     lib = _build.load(SOURCE, _bind)
-    fn = (lib.flash_attention_f32 if q.dtype == torch.float32
-          else lib.flash_attention_bf16)
+    entry = ENTRY_POINTS[variant if variant != "cuda_core"
+                         else (variant, q.dtype)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 bh, group, sq, sk, dq, dv, int(causal), int(window),
-                 float(scale), stream)
-    _build.launch_check("flash_attention", err)
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+            group, sq, sk, dq, dv, int(causal), int(window), float(scale),
+            stream)
+    _build.launch_check(f"flash_attention ({variant})", err)
     LAUNCHES["flash_attention"] += 1
+    VARIANT_LAUNCHES[variant] += 1
     return out

@@ -155,11 +155,20 @@ def exact_f32():
     (2, 2, 128, 128, 128, 64, True, 0, torch.float32),      # Dv != Dq
     (3, 1, 100, 77, 16, 16, False, 0, torch.float32),       # Sq != Sk
     (2, 2, 300, 300, 120, 120, True, 100, torch.float32),   # h2o-danube
-    # bf16, Dq == Dv == 128: the tensor-core kernel
+    # bf16, Dq == Dv == 128: the wgmma kernel
     (8, 2, 256, 256, 128, 128, True, 0, torch.bfloat16),
     (1, 1, 160, 160, 128, 128, True, 0, torch.bfloat16),    # ragged
     (2, 2, 256, 256, 128, 128, True, 64, torch.bfloat16),   # window
     (3, 1, 100, 77, 128, 128, False, 0, torch.bfloat16),    # Sq != Sk
+    (1, 1, 128, 128, 128, 128, True, 0, torch.bfloat16),    # one tile
+    (8, 2, 2048, 2048, 128, 128, True, 0, torch.bfloat16),  # group 4
+    (2, 2, 2048, 2048, 128, 128, True, 0, torch.bfloat16),  # group 1
+    (4, 1, 1000, 1000, 128, 128, True, 0, torch.bfloat16),  # ragged
+    (2, 1, 77, 77, 128, 128, True, 0, torch.bfloat16),      # Sk < 128
+    (2, 2, 77, 77, 128, 128, False, 0, torch.bfloat16),     # Sk < 128
+    (4, 2, 1024, 1024, 128, 128, True, 256, torch.bfloat16),  # window
+    (4, 2, 512, 512, 128, 128, True, 100, torch.bfloat16),  # window edge
+    (3, 3, 1000, 1000, 128, 128, False, 0, torch.bfloat16),  # BH 3
     # bf16 elsewhere: the CUDA-core kernel
     (2, 2, 128, 128, 64, 64, True, 0, torch.bfloat16),
     (2, 2, 256, 256, 64, 64, True, 64, torch.bfloat16),     # window
@@ -176,10 +185,76 @@ def test_kernel_flash_attention_matches_plain(card, exact_f32, bh, bkv, sq,
                .to(dtype).to(card)
                for shape in ((bh, sq, dq), (bkv, sk, dq), (bkv, sk, dv)))
     launches = FA.LAUNCHES["flash_attention"]
+    variant = FA.plan(dq, dv, dtype, True)
+    assert variant == ("wgmma" if dtype == torch.bfloat16 and dq == dv == 128
+                       else "cuda_core")
+    before = FA.VARIANT_LAUNCHES[variant]
     out = FA.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert FA.LAUNCHES["flash_attention"] == launches + 1
+    assert FA.VARIANT_LAUNCHES[variant] == before + 1
     assert out.dtype == dtype and out.shape == (bh, sq, dv)
+    assert_flash_close(out, q, k, v, causal=causal, window=window)
+
+
+def _bf16_qkv(card, bh, bkv, sq, sk, seed, head_offset=0.0):
+    """bf16 q, k, v (D = 128) from a seed; v of head h shifted by
+    ``head_offset`` * h, so rows that land in another head's output stand
+    out."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               for shape in ((bh, sq, 128), (bkv, sk, 128), (bkv, sk, 128)))
+    v += head_offset * torch.arange(bkv, dtype=torch.float32)[:, None, None]
+    return tuple(t.to(torch.bfloat16).to(card) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("bh,bkv,s,causal", [(3, 3, 200, True),
+                                             (3, 3, 1000, False),
+                                             (6, 3, 333, True)])
+def test_wgmma_flash_keeps_each_head_to_itself(card, bh, bkv, s, causal):
+    """Ragged S with several heads, each head's v offset by 8 h: the
+    ragged query tile's TMA store is clipped at Sq of its own head (a 2-D
+    map over heads x S would overwrite the next head's first rows, and a
+    load past Sk would read the next head's keys).  Every head is held
+    separately."""
+    q, k, v = _bf16_qkv(card, bh, bkv, s, s, seed=bh + s, head_offset=8.0)
+    assert FA.plan(128, 128, torch.bfloat16, FA._aligned16(q, k, v)) == "wgmma"
+    out = FA.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = FA.flash_attention_torch(q, k, v, causal=causal).float()
+    bound = FA.bf16_error_bound(q, k, v, causal=causal)
+    for h in range(bh):
+        err = (out[h].float() - want[h]).abs()
+        assert bool((err <= bound[h]).all()), (
+            f"head {h}: {int((err > bound[h]).sum())} elements beyond the "
+            f"bf16 bound, max |err| {float(err.max()):.3e}")
+
+
+@pytest.mark.parametrize("bh,bkv,s,causal,window", [
+    (8, 2, 1000, True, 0), (4, 2, 512, True, 100), (3, 1, 77, False, 0)])
+def test_wgmma_flash_is_deterministic(card, bh, bkv, s, causal, window):
+    """Two calls on the same inputs give bit-equal outputs."""
+    q, k, v = _bf16_qkv(card, bh, bkv, s, s, seed=11)
+    before = FA.VARIANT_LAUNCHES["wgmma"]
+    x = FA.flash_attention(q, k, v, causal=causal, window=window)
+    y = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.VARIANT_LAUNCHES["wgmma"] == before + 2
+    assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("bh,bkv,sq,sk,causal,window", [
+    (8, 2, 256, 256, True, 0), (1, 1, 160, 160, True, 0),
+    (2, 2, 256, 256, True, 64), (3, 1, 100, 77, False, 0)])
+def test_mma_sync_flash_kernel_still_matches_plain(card, bh, bkv, sq, sk,
+                                                   causal, window):
+    """The PR 12 tensor-core kernel, reached through the private launcher
+    (the yardstick ``chip_smoke.py`` times beside the wgmma kernel)."""
+    q, k, v = _bf16_qkv(card, bh, bkv, sq, sk, seed=bh * sq + window)
+    before = FA.VARIANT_LAUNCHES["mma_sync"]
+    out = FA._launch(q, k, v, causal, window, None, "mma_sync")
+    torch.cuda.synchronize()
+    assert FA.VARIANT_LAUNCHES["mma_sync"] == before + 1
     assert_flash_close(out, q, k, v, causal=causal, window=window)
 
 
@@ -205,6 +280,7 @@ def test_kernel_selective_scan_matches_plain(card, B, S, D, N):
 def test_flash_attention_unaligned_bf16_matches_plain(card):
     """bf16 tensors that are contiguous but not 16-byte aligned (a storage
     offset of one element) take the CUDA-core kernel; same function."""
+    before = FA.VARIANT_LAUNCHES["cuda_core"]
     rng = np.random.default_rng(9)
     views = []
     for shape in ((4, 128, 128), (2, 128, 128), (2, 128, 128)):
@@ -214,6 +290,7 @@ def test_flash_attention_unaligned_bf16_matches_plain(card):
     q, k, v = views
     assert q.is_contiguous() and q.data_ptr() % 16 != 0
     assert_flash_close(FA.flash_attention(q, k, v, causal=True), q, k, v)
+    assert FA.VARIANT_LAUNCHES["cuda_core"] == before + 1
 
 
 def test_new_kernels_reject_what_they_cannot_take(card):

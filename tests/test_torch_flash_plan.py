@@ -1,0 +1,109 @@
+"""The port's flash-attention dispatch plan, on the CPU:
+``flash_attention.plan`` picks the kernel of each call from the input type,
+the head dims and the alignment of the pointers alone -- checked here at
+the attention shape of every ported config (as ``models/layers.py``
+hands it to the kernel: (B * H, S, head_dim)), at the head dims that take
+the CUDA-core kernel and at unaligned views; and the shared build sees the
+shared header.  The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phases 6 and 8).
+"""
+
+import shutil
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as FA
+
+BF16 = torch.bfloat16
+
+# the ported configs whose attention heads are 128 wide: the LM path
+WGMMA_CONFIGS = ["jamba_v01_52b", "olmo_1b", "olmoe_1b_7b",
+                 "deepseek_moe_16b", "mistral_large_123b"]
+
+
+@pytest.mark.parametrize("arch", WGMMA_CONFIGS)
+def test_head_dim_128_configs_pick_wgmma_in_bf16(arch):
+    d = get_config(arch).attention.head_dim
+    assert d == 128
+    assert FA.plan(d, d, BF16, True) == "wgmma"
+    assert FA.plan(d, d, torch.float32, True) == "cuda_core"
+
+
+@pytest.mark.parametrize("arch,d", [("jamba_v01_52b", 16),
+                                    ("whisper_small", 64),
+                                    ("phi3_vision_4b", 96),
+                                    ("h2o_danube3_4b", 120)])
+def test_other_head_dims_pick_cuda_core(arch, d):
+    """jamba's smoke config (16), whisper (64), phi-3-vision (96) and
+    h2o-danube (120): not the wgmma kernel's 128, in either type."""
+    cfg = get_smoke_config(arch) if d == 16 else get_config(arch)
+    assert cfg.attention.head_dim == d
+    for dtype in (BF16, torch.float32):
+        assert FA.plan(d, d, dtype, True) == "cuda_core"
+
+
+@pytest.mark.parametrize("dq,dv", [(128, 64), (64, 128), (128, 120)])
+def test_dv_unlike_dq_picks_cuda_core(dq, dv):
+    assert FA.plan(dq, dv, BF16, True) == "cuda_core"
+
+
+def test_unaligned_bf16_picks_cuda_core():
+    assert FA.plan(128, 128, BF16, False) == "cuda_core"
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64,
+                                   torch.int32])
+def test_plan_rejects_other_types(dtype):
+    with pytest.raises(TypeError):
+        FA.plan(128, 128, dtype, True)
+
+
+def test_alignment_is_read_from_the_pointers():
+    q = torch.zeros((4, 128, 128), dtype=BF16)
+    assert FA._aligned16(q, q, q)
+    flat = torch.zeros(4 * 128 * 128 + 1, dtype=BF16)
+    q1 = flat[1:].view(4, 128, 128)
+    assert q1.is_contiguous() and not FA._aligned16(q, q1, q)
+    assert FA.plan(128, 128, BF16, FA._aligned16(q, q1, q)) == "cuda_core"
+
+
+def test_cpu_tensors_count_a_plain_call_and_no_variant_launch():
+    FA.reset_counts()
+    q = torch.randn((8, 64, 128)).to(BF16)
+    kv = torch.randn((2, 64, 128)).to(BF16)
+    out = FA.flash_attention(q, kv, kv, causal=True)
+    assert torch.equal(out, FA.flash_attention_torch(q, kv, kv, causal=True))
+    assert FA.PLAIN_CALLS["flash_attention"] == 1
+    assert FA.LAUNCHES["flash_attention"] == 0
+    assert all(n == 0 for n in FA.VARIANT_LAUNCHES.values())
+    assert set(FA.VARIANT_LAUNCHES) == set(FA.VARIANTS)
+    FA.reset_counts()
+    assert FA.PLAIN_CALLS["flash_attention"] == 0
+
+
+def test_every_variant_has_an_entry_point():
+    """The two planned kernels, and the private mma.sync yardstick."""
+    names = set(FA.ENTRY_POINTS.values())
+    for name in names:
+        assert f"int {name}(" in FA.SOURCE.read_text()
+    assert {"wgmma", "mma_sync"} <= set(FA.ENTRY_POINTS)
+    assert {("cuda_core", t) for t in FA.DTYPES} <= set(FA.ENTRY_POINTS)
+
+
+def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """Editing a ``csrc/*.cuh`` renames every library, so a header change
+    is never served by a stale build."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    src = csrc / "flash_attention.cu"
+    before = _build.library_path(src)
+    assert before == _build.library_path(src)
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = _build.library_path(src)
+    assert after != before and after.parent == before.parent
+    assert after.name.startswith("flash_attention_")

@@ -43,9 +43,8 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import systolic_gemm as SG  # noqa: E402
 
 OUT = ROOT / "build" / "gemm_breakdown"
-NO_MATH = ("        wgmma_m64n256k16(acc, da, db, (kt | kk) != 0);\n",
-           "        if (da == 1) wgmma_m64n256k16(acc, da, db, (kt | kk) != 0);"
-           "\n")
+NO_MATH = ("        wgmma_ss<1>(acc, da, db, (kt | kk) != 0);\n",
+           "        if (da == 1) wgmma_ss<1>(acc, da, db, (kt | kk) != 0);\n")
 EPILOGUE = "    // epilogue: thread t holds rows r and r + 8 of each 8-column group.\n"
 CUTS = {
     "wgmma_no_epilogue": (EPILOGUE,
