@@ -15,21 +15,40 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    print the build times and the ``-Xptxas -v`` register and
    shared-memory summaries;
 3. each max-plus kernel against its plain PyTorch version on the card,
-   bit for bit (``torch.equal``: max-plus is exact), at the main path's
-   shapes (the largest cell's closure squarings and the per-block matvec
-   at 4096 candidates, NEG entries mixed in) and at ragged shapes;
-   CUDA-event times (after a warm-up call) of the kernel and of the plain
-   version beside the bound;
+   bit for bit (``torch.equal``: max-plus is exact): the general matmul
+   and matvec at the squaring loop's shapes (86016 closure squarings, the
+   per-block matvec at 4096 candidates, NEG entries mixed in) and at
+   ragged shapes; the blocked engine's entries -- the one-launch closure
+   in lower mode on the real closure inputs of oma/gemm (its 21 diagonal
+   structure blocks and the work of the 4096 seed-0 candidates, held
+   chunk by chunk; full mode on the same inputs must equal it), full mode
+   on dense operands (n 128, 100, 77, 32, 16, ragged batches), lower mode
+   on random strictly-lower operands (n 128, 77, 16); the lower closure
+   matvec on a real closure block at 4096 candidates and ragged shapes
+   (vectors past 2^35 too); the folded sub-diagonal matvec at 4096 and
+   ragged shapes and with block 0's all-NEG structure -- with the
+   ``-Xptxas -v`` summary of each new entry point; CUDA-event times
+   (after a warm-up call) of every kernel and plain version beside the
+   bound, and for the blocked engine's entries also beside the dense
+   bound (closure) and the general-kernel path on the same inputs (input
+   passes + 7 x (general matmul + ``torch.maximum``); the general matvec;
+   the written ``D + w`` operand + general matvec + ``torch.maximum``), and
+   the two matvecs also as device time (CUDA-graph replay);
 4. the Explorer path: ``Explorer(default_scenarios(), engine="blocked",
    device="cuda")``, ``explore`` over 4096 random candidates and a short
    coordinate-descent ``refine``, with the launch counters zeroed just
-   before and read just after (every kernel must have launched, no plain
-   version may have run); two more timed explores for the spread, the
-   same explore with the wavefront engine, and one blocked explore under
-   ``torch.profiler`` for the device time by kernel;
+   before and read just after (the closure in lower mode, the lower and
+   the folded matvec must have launched; no full mode, no general matmul
+   or matvec, no plain version); two more timed explores for the spread,
+   the same explore with the wavefront engine, and one blocked explore
+   under ``torch.profiler`` for the device time by kernel;
 5. its result: the θ = 1 row equals the golden cycles exactly, every
    baseline lies within its cell's ``sim_tol`` of the event simulator,
    and 256 candidates agree with the wavefront engine within rtol 1e-5;
+   4b. the general kernels' path: ``longest_path_blocked`` at block 256
+   (above the closure kernel's 128) on oma/gemm, counters zeroed just
+   before and read just after (general matmul and matvec launched, none
+   of the block-128 entries), equal on integer work to block 128;
 6. flash attention and the selective scan against their plain versions
    on the card (TF32 off): flash at the LM path's shape (4 x 32 query
    heads over 4 x 8 KV heads, S = 2048, D = 128) in bf16 and in f32, at
@@ -269,9 +288,23 @@ def bound(triples: int, nbytes: int):
     """(least ms, "operations" | "bytes"): two FP32 instructions (add,
     max) per (i, j, k) triple, each input read and each output written
     once."""
-    t_ops = 2.0 * triples / FP32_INSTR_PER_S * 1e3
+    return bound_instr(2 * triples, nbytes)
+
+
+def bound_instr(instr: int, nbytes: int):
+    """(least ms, "operations" | "bytes") of ``instr`` FP32 instructions
+    moving ``nbytes``."""
+    t_ops = instr / FP32_INSTR_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def closure_useful_instr(n: int) -> int:
+    """FP32 instructions one squaring ``P <- max(P, P ⊗ P)`` of a strictly
+    lower-triangular n x n block needs: P_kk stays 0, so only the triples
+    j < k < i can change an entry (an add and a max each, C(n, 3) of
+    them), and every entry with i >= j takes one max with the old P."""
+    return 2 * math.comb(n, 3) + n * (n + 1) // 2
 
 
 def operand(gen, shape, dev, neg_frac=0.5):
@@ -353,10 +386,261 @@ def kernel_phase(K, path_batch: int, dev):
           f"shapes too", flush=True)
     del A, v, out, ref
     torch.cuda.empty_cache()
+    rows.update(closure_phase(K, gen, dev))
     for r in rows.values():     # no PyTorch call computes a max-plus product
         r.update(source="src/repro_torch/csrc/maxplus.cu",
                  replaces="src/repro/kernels/maxplus.py:29", library_ms=None)
     return rows
+
+
+def path_closure_inputs(dev):
+    """The blocked engine's closure inputs for the path's largest cell,
+    oma/gemm, at block 128: its diagonal and sub-diagonal structure
+    blocks (nb, 128, 128), and the work of the N_CAND seed-0 random
+    candidates, blocks-major (nb, N_CAND, 128), as ``Solver.relax_for``
+    builds them from ``dse._reweight``."""
+    from repro_torch.core.aidg import dse as DSE
+    from repro_torch.core.aidg.explorer import (DEFAULT_SPACE,
+                                                compile_scenario,
+                                                default_scenarios,
+                                                random_candidates)
+    from repro_torch.core.aidg.maxplus import _blocked_structure
+    sc = next(s for s in default_scenarios() if s.name == "oma/gemm")
+    cs = compile_scenario(sc)
+    cand = random_candidates(DEFAULT_SPACE, N_CAND, seed=0)
+    to, ts = DEFAULT_SPACE.theta_for(cs.problem, cand)
+    T = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                  device=dev)
+    work = DSE._reweight(cs.problem, T(to), T(ts))[0]
+    Dd, Ds = _blocked_structure(cs.compiled_aidg, BLOCK)[:2]
+    nb, n = Dd.shape[0], work.shape[1]
+    wp = torch.cat([work, torch.zeros((N_CAND, nb * BLOCK - n), device=dev)],
+                   dim=1)
+    wb = wp.view(N_CAND, nb, BLOCK).permute(1, 0, 2).contiguous()
+    return cs, T(Dd), T(Ds), wb
+
+
+def strictly_lower(x):
+    """``x`` with NEG on and above the diagonal of every block."""
+    n = x.shape[-1]
+    upper = torch.ones((n, n), dtype=torch.bool, device=x.device).triu()
+    return x.masked_fill(upper, -1e18)
+
+
+def squaring_loop_closure(K, Dd, wb, steps):
+    """The closure as a loop over the general matmul computes it (the
+    blocked engine's path before the closure kernel): the (nb, B, n, n) input
+    ``Dd + w`` and ``max(M, I)`` written out, then per squaring one general
+    matmul launch and a ``torch.maximum``."""
+    n = Dd.shape[-1]
+    eye = torch.full((n, n), -1e18, device=Dd.device)
+    eye.fill_diagonal_(0.0)
+    P = torch.maximum(Dd[:, None] + wb[..., None], eye).reshape(-1, n, n)
+    for _ in range(steps):
+        Q = K.maxplus_matmul(P, P)
+        P = torch.maximum(P, Q, out=Q)
+    return P
+
+
+def closure_phase(K, gen, dev):
+    """Phase 3, the blocked engine's redesigned entries: the closure kernel
+    (lower mode on the real oma/gemm closure inputs at N_CAND candidates,
+    full mode on dense operands, lower mode on random strictly-lower
+    operands) and the two propagation matvecs, each bit for bit against its
+    plain version, timed beside its bound, the dense bound and the path
+    before them (one general kernel launch per squaring or matvec) on the
+    same inputs.  Returns their rows."""
+    from repro_torch.core.aidg.maxplus import _diagonal_facts
+    rows = {}
+    cs, Dd, Ds, wb = path_closure_inputs(dev)
+    nb, n = Dd.shape[0], BLOCK
+    steps = int(math.ceil(math.log2(n)))
+    items = nb * N_CAND
+    lower, dmax = _diagonal_facts(cs.compiled_aidg, n)
+    variant = K.plan_closure(n, lower, n * (dmax + float(wb.abs().max())))
+    check(variant == "closure_lower", f"oma/gemm planned {variant}")
+
+    # -- the closure, lower mode, on the path's inputs ---------------------
+    out = K.maxplus_closure(Dd, steps, wb, variant="closure_lower")
+    chunk = 96
+    err = 0.0
+    for s in range(0, N_CAND, chunk):
+        ref = K.maxplus_closure_torch(Dd, steps, wb[:, s:s + chunk])
+        check(torch.equal(out[:, s:s + chunk], ref),
+              f"maxplus_closure (lower) != plain at candidates {s}..")
+        err = max(err, float((out[:, s:s + chunk] - ref).abs().max()))
+    del ref
+    full = K.maxplus_closure(Dd, steps, wb, variant="closure_full")
+    check(torch.equal(full, out), "closure full mode != lower mode on the "
+                                  "path's inputs")
+    del full
+    C_last = out[nb - 1].clone()        # a real closure block for the matvec
+    del out
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: K.maxplus_closure(Dd, steps, wb,
+                                           variant="closure_lower"), reps=5)
+    full_ms = cuda_ms(lambda: K.maxplus_closure(Dd, steps, wb,
+                                                variant="closure_full"),
+                      reps=2)
+    old_ms = cuda_ms(lambda: squaring_loop_closure(K, Dd, wb, steps),
+                     reps=2)
+    plain_ms = cuda_ms(lambda: [K.maxplus_closure_torch(Dd, steps,
+                                                        wb[:, s:s + chunk])
+                                for s in range(0, N_CAND, chunk)], reps=1)
+    torch.cuda.empty_cache()
+    useful = steps * items * closure_useful_instr(n)
+    nbytes = (items * n * n + Dd.numel() + wb.numel()) * 4
+    bms, by = bound_instr(useful, nbytes)
+    dense_ms, _ = bound(steps * items * n ** 3, nbytes)
+    # full mode, dense operands with NEG mixed in, ragged n and batches
+    for nn, bb in ((128, 333), (100, 7), (32, 1000), (16, 5)):
+        st = int(math.ceil(math.log2(nn)))
+        M = operand(gen, (bb, nn, nn), dev)
+        check(torch.equal(K.maxplus_closure(M, st, variant="closure_full"),
+                          K.maxplus_closure_torch(M, st)),
+              f"maxplus_closure (full) != plain at ({bb}, {nn}, {nn})")
+    D3 = operand(gen, (3, 77, 77), dev, 0.7)
+    w3 = operand(gen, (3, 111, 77), dev, 0.0)
+    check(torch.equal(K.maxplus_closure(D3, 7, w3, variant="closure_full"),
+                      K.maxplus_closure_torch(D3, 7, w3)),
+          "maxplus_closure (full, structure + work) != plain")
+    # lower mode, random strictly-lower structure + work
+    for nn, g, bb in ((128, 2, 333), (77, 3, 50), (16, 1, 7)):
+        st = int(math.ceil(math.log2(nn)))
+        D = strictly_lower(operand(gen, (g, nn, nn), dev, 0.7))
+        w = operand(gen, (g, bb, nn), dev, 0.0)
+        check(torch.equal(K.maxplus_closure(D, st, w,
+                                            variant="closure_lower"),
+                          K.maxplus_closure_torch(D, st, w)),
+              f"maxplus_closure (lower) != plain at ({g}, {bb}, {nn})")
+    rows["maxplus_closure"] = dict(
+        shape=[items, n, n, steps], ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, max_abs_err=err, variant="closure_lower",
+        full_mode_ms=full_ms, dense_bound_ms=dense_ms, old_path_ms=old_ms)
+    print(f"maxplus_closure lower mode, oma/gemm's {nb} blocks x {N_CAND} "
+          f"candidates = ({items}, {n}, {n}) x {steps} squarings: kernel "
+          f"{ms:.3f} ms, {100 * bms / ms:.1f}% of the useful-triple bound "
+          f"{bms:.3f} ms ({by}), {100 * dense_ms / ms:.1f}% of the dense "
+          f"bound {dense_ms:.3f} ms; full mode {full_ms:.3f} ms "
+          f"({100 * dense_ms / full_ms:.1f}% of the dense bound); squaring "
+          f"loop (input passes + {steps} x (general matmul + torch.maximum)) "
+          f"{old_ms:.3f} ms = {old_ms / ms:.2f}x; plain {plain_ms:.1f} ms; "
+          f"equal to plain bit for bit (both modes), ragged and random "
+          f"operands too", flush=True)
+    del Dd, wb
+    torch.cuda.empty_cache()
+
+    # -- the closure matvec on a real closure block --------------------------
+    b = N_CAND
+    h = operand(gen, (b, n), dev, 0.2)
+    out = K.maxplus_matvec_lower(C_last, h)
+    ref = K.maxplus_matvec_torch(C_last, h)
+    check(torch.equal(out, ref),
+          "maxplus_matvec_lower != plain at the path shape")
+    err = float((out - ref).abs().max())
+    ms = cuda_ms(lambda: K.maxplus_matvec_lower(C_last, h), reps=50)
+    dev_ms = graph_ms([lambda: K.maxplus_matvec_lower(C_last, h)], reps=50)
+    old_ms = cuda_ms(lambda: K.maxplus_matvec(C_last, h), reps=50)
+    plain_ms = cuda_ms(lambda: K.maxplus_matvec_torch(C_last, h), reps=5)
+    bms, by = bound(b * n * (n + 1) // 2,
+                    (b * n * (n + 1) // 2 + 2 * b * n) * 4)
+    for nn, bb in ((77, 5), (16, 300), (128, 3)):
+        D = strictly_lower(operand(gen, (1, nn, nn), dev, 0.7))
+        C = K.maxplus_closure(D, 7, operand(gen, (1, bb, nn), dev, 0.0),
+                              variant="closure_lower")[0]
+        hh = operand(gen, (bb, nn), dev, 0.2) * 2.0 ** 30   # past 2^35 too
+        check(torch.equal(K.maxplus_matvec_lower(C, hh),
+                          K.maxplus_matvec_torch(C, hh)),
+              f"maxplus_matvec_lower != plain at ({bb}, {nn})")
+    rows["maxplus_matvec_lower"] = dict(
+        shape=[b, n, n], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        max_abs_err=err, old_path_ms=old_ms, device_ms=dev_ms)
+    print(f"maxplus_matvec_lower ({b}, {n}, {n}) x ({b}, {n}), a real "
+          f"closure block: kernel {ms:.4f} ms, device {dev_ms:.4f} ms "
+          f"({100 * bms / dev_ms:.1f}% of bound {bms:.4f} ms, {by}); "
+          f"general matvec {old_ms:.4f} "
+          f"ms = {old_ms / ms:.2f}x; plain {plain_ms:.3f} ms; equal bit for "
+          f"bit, ragged shapes and |h| past 2^35 too", flush=True)
+    del C_last, h, out, ref
+
+    # -- the folded sub-diagonal matvec -------------------------------------
+    Db = Ds[nb - 1].contiguous()
+    w = operand(gen, (b, n), dev, 0.0)
+    prev, h0 = operand(gen, (b, n), dev, 0.1), operand(gen, (b, n), dev, 0.5)
+    out = K.maxplus_matvec_folded(Db, w, prev, h0)
+    ref = K.maxplus_matvec_folded_torch(Db, w, prev, h0)
+    check(torch.equal(out, ref),
+          "maxplus_matvec_folded != plain at the path shape")
+    err = float((out - ref).abs().max())
+    ms = cuda_ms(lambda: K.maxplus_matvec_folded(Db, w, prev, h0), reps=50)
+    dev_ms = graph_ms([lambda: K.maxplus_matvec_folded(Db, w, prev, h0)],
+                      reps=50)
+    old_ms = cuda_ms(lambda: torch.maximum(
+        h0, K.maxplus_matvec(Db + w[:, :, None], prev)), reps=20)
+    plain_ms = cuda_ms(lambda: K.maxplus_matvec_folded_torch(Db, w, prev, h0),
+                       reps=5)
+    t_ops = 3.0 * b * n * n / FP32_INSTR_PER_S * 1e3
+    t_bytes = (n * n + 4 * b * n) * 4 / HBM_BYTES_PER_S * 1e3
+    bms, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
+                                                              "bytes")
+    for nn, bb, all_neg in ((77, 33, False), (16, 7, False), (128, 5, True)):
+        D = (torch.full((nn, nn), -1e18, device=dev) if all_neg
+             else operand(gen, (nn, nn), dev, 0.8))
+        ww, pp, hh = (operand(gen, (bb, nn), dev, f) for f in (0.0, 0.1, 0.5))
+        check(torch.equal(K.maxplus_matvec_folded(D, ww, pp, hh),
+                          K.maxplus_matvec_folded_torch(D, ww, pp, hh)),
+              f"maxplus_matvec_folded != plain at ({bb}, {nn}), all-NEG "
+              f"{all_neg}")
+    rows["maxplus_matvec_folded"] = dict(
+        shape=[b, n, n], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        max_abs_err=err, old_path_ms=old_ms, device_ms=dev_ms)
+    print(f"maxplus_matvec_folded (D {n} x {n}) + ({b}, {n}) work, ({b}, "
+          f"{n}) prev: kernel {ms:.4f} ms, device {dev_ms:.4f} ms "
+          f"({100 * bms / dev_ms:.1f}% of bound {bms:.4f} ms, {by}); "
+          f"unfolded step (D + w written, general matvec, "
+          f"torch.maximum) {old_ms:.4f} ms = {old_ms / ms:.2f}x; plain "
+          f"{plain_ms:.3f} ms; equal bit for bit, ragged shapes and block "
+          f"0's all-NEG D too", flush=True)
+    del Ds, Db, w, prev, h0, out, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def general_path_phase(K, dev):
+    """Phase 4b: ``longest_path_blocked`` at block 256 -- above the closure
+    kernel's 128, so every squaring takes the general matmul and every
+    propagation the general matvec -- on oma/gemm, N_CROSS candidates of
+    integer work (the AIDG's own scaled by 1..4, so every sum is exact):
+    equal to the block-128 path (the redesigned entries) exactly, with the
+    launch counters zeroed just before and read just after.  Returns the
+    general kernels' launches."""
+    from repro_torch.core.aidg.explorer import (compile_scenario,
+                                                default_scenarios)
+    from repro_torch.core.aidg.maxplus import longest_path_blocked
+    sc = next(s for s in default_scenarios() if s.name == "oma/gemm")
+    ca = compile_scenario(sc).compiled_aidg
+    rng = np.random.default_rng(0)
+    work = (ca.aidg.work[None]
+            * rng.integers(1, 5, (N_CROSS, ca.aidg.n))).astype(np.float32)
+    K.reset_counts()
+    t = time.perf_counter()
+    t256 = longest_path_blocked(ca, block=256, work=work, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches, plain = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
+    for name in ("maxplus_matmul", "maxplus_matvec"):
+        check(launches[name] > 0, f"{name} never launched at block 256")
+    for name in ("maxplus_closure", "maxplus_matvec_lower",
+                 "maxplus_matvec_folded"):
+        check(launches[name] == 0, f"{name} ran at block 256")
+    check(sum(plain.values()) == 0, f"plain versions ran: {plain}")
+    t128 = longest_path_blocked(ca, block=128, work=work, device=dev)
+    check(torch.equal(t256, t128), "block 256 != block 128 on integer work")
+    print(f"blocked engine at block 256 (oma/gemm, {N_CROSS} candidates of "
+          f"integer work): {secs:.3f} s, launches {launches}; equal to the "
+          f"block-128 path", flush=True)
+    return {name: launches[name] for name in ("maxplus_matmul",
+                                              "maxplus_matvec")}
 
 
 # ---------------------------------------------------------------------------
@@ -1058,9 +1342,12 @@ def packed_phase(modules, dev, blocked_cycles):
 
 # what a kernel's row may carry beside the contract's keys (the chosen
 # kernel of the GEMM and of flash attention, device times, the mma.sync
-# kernels' times, every case)
+# kernels' times, every case; the closure's full mode and dense bound, and
+# the time of the general-kernel path each of the blocked engine's entries
+# replaced)
 EXTRA_KEYS = ("variant", "launch_ms", "device_ms", "library_device_ms",
-              "old_kernel_ms", "old_kernel_device_ms", "cases")
+              "old_kernel_ms", "old_kernel_device_ms", "cases",
+              "full_mode_ms", "dense_bound_ms", "old_path_ms")
 
 
 def main() -> int:
@@ -1110,6 +1397,14 @@ def main() -> int:
     for name, (lib, secs) in built.items():
         print(f"{lib.name} ({secs:.1f} s); nvcc -Xptxas -v said:", flush=True)
         print(lib.with_suffix(".log").read_text().strip(), flush=True)
+    mp_log = built["maxplus"][0].with_suffix(".log").read_text()
+    for kern in ("maxplus_closure_kernel", "maxplus_matvec_lower_kernel",
+                 "maxplus_matvec_folded_kernel"):
+        print(f"{kern}, nvcc -Xptxas -v: {ptxas_summary(mp_log, kern)}",
+              flush=True)
+    print(f"maxplus_closure_kernel dynamic shared memory at n = {BLOCK}: "
+          f"{2 * BLOCK * (BLOCK + 4) * 4} B (P and its transpose)",
+          flush=True)
     phase_done("2 (build)")
 
     # -- 3. kernels vs plain versions --------------------------------------
@@ -1136,12 +1431,21 @@ def main() -> int:
     inc = ex.refine(rounds=1, points=3)
     refine_s = time.perf_counter() - t
     launches, plain = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
+    modes = dict(K.VARIANT_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    print(f"launches {launches}, plain calls {plain} (Explorer build, "
-          f"one explore, one refine)", flush=True)
-    for name in K.LAUNCHES:
+    print(f"launches {launches}, closure modes {modes}, plain calls {plain} "
+          f"(Explorer build, one explore, one refine)", flush=True)
+    # the blocked engine's entries ran, the closure in lower mode only; the
+    # general matmul and matvec (phase 4b's path) and no plain version
+    for name in ("maxplus_closure", "maxplus_matvec_lower",
+                 "maxplus_matvec_folded"):
         check(launches[name] > 0, f"{name} never launched on the main path")
-        check(plain[name] == 0, f"plain {name} ran on the main path")
+    check(modes["closure_lower"] > 0 and modes["closure_full"] == 0,
+          f"closure modes on the main path: {modes}")
+    for name in ("maxplus_matmul", "maxplus_matvec"):
+        check(launches[name] == 0, f"general {name} ran on the main path")
+    check(sum(plain.values()) == 0, f"plain versions ran on the main path: "
+                                    f"{plain}")
     S = len(ex.compiled)
     blocked_s = [explore_s] + [timed(lambda: ex.explore(cand))
                                for _ in range(2)]
@@ -1196,6 +1500,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("4-5 (blocked Explorer)")
+
+    # -- 4b. the general kernels' path: blocks above the closure's 128 -------
+    general = general_path_phase(K, dev)
+    launches.update(general)
+    phase_done("4b (blocked engine at block 256)")
 
     # -- 6.-8. the LM path ---------------------------------------------------
     rows.update(lm_kernel_phase(FA, SS, dev))

@@ -13,8 +13,11 @@ in the same rank.
 * ``longest_path_blocked`` — the adjacency banded into dense 128-node
   blocks, each block solved by the max-plus Kleene closure
   t_b = M*_b ⊗ h_b.  Every ⊗ goes through ``repro_torch.kernels.maxplus``:
-  the hand-written CUDA kernel on CUDA tensors, its plain version on CPU
-  tensors.
+  the hand-written CUDA kernels on CUDA tensors, their plain versions on
+  CPU tensors.  The closures of all blocks and candidates take one launch
+  (lower mode where ``plan_closure`` allows it: ``compile_aidg`` numbers
+  nodes level-major, so every diagonal block is strictly lower-triangular);
+  each block step is a folded sub-diagonal matvec and a closure matvec.
 * ``longest_path_condensed`` — the wavefront over the chain-condensed
   graph (``builder.condense_aidg``): one loop step per *unit* level,
   absorbed chain interiors rebuilt from an exact prefix sum, and the
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...kernels import maxplus as K
 from ...kernels.maxplus import (maxplus_matmul, maxplus_matmul_torch,
                                 maxplus_matvec)
 from .builder import AIDG, CompiledAIDG, CondensedAIDG, NEG, compile_aidg, \
@@ -347,10 +351,15 @@ def longest_path_condensed(aidg: AIDGLike, work=None, base=None,
 
 def maxplus_closure(M: Tensor, steps: int) -> Tensor:
     """Kleene star M* = (I ⊕ M)^(2^steps) by repeated max-plus squaring, for
-    M (..., n, n).  All leading dims go to the kernel as ONE batch, so each
-    squaring is one launch.  Each squaring writes a new buffer: updating P
-    in place would read entries it has just overwritten."""
+    M (..., n, n).  For n <= 128 all leading dims go to the closure kernel
+    as ONE batch in ONE launch, in full mode (M may be any matrix); larger
+    n take one general matmul launch per squaring, each into a new buffer
+    (updating P in place would read entries it has just overwritten)."""
     n = M.shape[-1]
+    if n <= K.CLOSURE_MAX_N:
+        M3 = M.reshape(-1, n, n).to(torch.float32).contiguous()
+        return K.maxplus_closure(M3, steps, variant="closure_full"
+                                 ).reshape(M.shape)
     eye = torch.full((n, n), NEG, dtype=torch.float32, device=M.device)
     eye.fill_diagonal_(0.0)
     P = torch.maximum(M, eye).reshape(-1, n, n)
@@ -408,22 +417,44 @@ def _blocked_structure(ca: CompiledAIDG, block: int) -> Tuple[np.ndarray, ...]:
     return out
 
 
+def _diagonal_facts(ca: CompiledAIDG, block: int) -> Tuple[bool, float]:
+    """(every diagonal block is strictly lower-triangular, the largest
+    finite |d| in them), cached per block size beside the structure."""
+    key = ("diagonal", block)
+    hit = ca._block_cache.get(key)
+    if hit is None:
+        Dd = _blocked_structure(ca, block)[0]
+        upper = np.triu(np.ones(Dd.shape[1:], dtype=bool))
+        fin = Dd[Dd > NEG / 2]
+        hit = (bool((Dd[:, upper] == NEG).all()),
+               float(np.abs(fin).max()) if fin.size else 0.0)
+        ca._block_cache[key] = hit
+    return hit
+
+
+def _matvec_folded_general(D: Tensor, w: Tensor, prev: Tensor, h0: Tensor
+                           ) -> Tensor:
+    """max(h0, (D + w) ⊗ prev) through the general matvec, for blocks above
+    the folded kernel's 128."""
+    return torch.maximum(h0, maxplus_matvec(D + w[:, :, None], prev))
+
+
 def _blocked_relax(n: int, block: int, Ds: Tensor, fs: Tensor, fd: Tensor,
-                   fw: Tensor, wb: Tensor, clo: Tensor, base: Tensor
-                   ) -> Tensor:
+                   fw: Tensor, wb: Tensor, clo: Tensor, base: Tensor,
+                   folded: Callable, closure_mv: Callable) -> Tensor:
     """The block recurrence for every batch row: for each block b,
     h_b = max(base+w, far-edge gathers, M_sub ⊗ t_{b-1}), t_b = M*_bb ⊗ h_b.
 
     ``wb`` (nb, B, block) and ``clo`` (nb, B, block, block) are stored
     blocks-major so that each step's slice is one contiguous batch for the
-    matvec kernel."""
+    matvec kernels.  ``folded(Ds_b, w_b, prev, h0_b)`` is max(h0_b, (Ds_b +
+    w_b) ⊗ prev) (m_ij = d_ij + w_i), ``closure_mv`` the closure matvec."""
     nb, B = wb.shape[0], wb.shape[1]
     dev = base.device
     pad = nb * block - n
     b_p = torch.cat([base, torch.full((B, pad), NEG, dtype=torch.float32,
                                       device=dev)], dim=1)
-    w_p = wb.permute(1, 0, 2).reshape(B, nb * block)
-    h0 = (b_p + w_p).view(B, nb, block)
+    h0 = (b_p.view(B, nb, block).permute(1, 0, 2) + wb).contiguous()
     neg_col = torch.full((B, 1), NEG, dtype=torch.float32, device=dev)
     zero_col = torch.zeros((B, 1), dtype=torch.float32, device=dev)
     t = torch.full((B, nb * block), NEG, dtype=torch.float32, device=dev)
@@ -431,22 +462,21 @@ def _blocked_relax(n: int, block: int, Ds: Tensor, fs: Tensor, fd: Tensor,
         start = max(bi - 1, 0) * block
         prev = t[:, start:start + block].contiguous()
         # block 0 has an all-NEG Ds[0], so its (unwritten) prev is masked
-        Ms_b = Ds[bi] + wb[bi][:, :, None]          # m_ij = d_ij + w_i
-        h = torch.maximum(h0[:, bi], maxplus_matvec(Ms_b, prev))
+        h = folded(Ds[bi], wb[bi], prev, h0[bi])
         w_pad = torch.cat([wb[bi], zero_col], dim=1)
         contrib = t[:, fs[bi]] + fw[bi] + w_pad[:, fd[bi]]   # pad: + NEG
         h = torch.cat([h, neg_col], dim=1).scatter_reduce(
             1, fd[bi].expand(B, -1), contrib, "amax", include_self=True)
-        tb = maxplus_matvec(clo[bi], h[:, :block].contiguous())
+        tb = closure_mv(clo[bi], h[:, :block].contiguous())
         t[:, bi * block:(bi + 1) * block] = tb      # closure has identity
     return t[:, :n]
 
 
 def longest_path_blocked(aidg: AIDGLike, block: int = 128, work=None,
                          base=None, device=None) -> Tensor:
-    """Blocked evaluation: per-block Kleene closures (one batched kernel
-    launch per squaring), then one matvec pair per block.  On CUDA tensors
-    every ⊗ runs the hand-written kernel."""
+    """Blocked evaluation: per-block Kleene closures (one kernel launch for
+    every block and candidate), then one matvec pair per block.  On CUDA
+    tensors every ⊗ runs a hand-written kernel."""
     dev = resolve_device(device)
     ca = _as_compiled(aidg)
     a = ca.aidg
@@ -509,6 +539,8 @@ class Solver:
         dev = torch.device(device)
         a = ca.aidg
         self.ca, self.engine, self.block = ca, engine, block
+        # the blocked engine's last closure mode (kernels.maxplus.plan_closure)
+        self.closure_variant: Optional[str] = None
         T = lambda x, dt=None: torch.as_tensor(np.asarray(x), dtype=dt,
                                                device=dev)
         if engine == "wavefront":
@@ -525,6 +557,7 @@ class Solver:
             Dd, Ds, fs, fd, fw = _blocked_structure(ca, block)
             self._bl = (T(Dd), T(Ds), T(fs, torch.long), T(fd, torch.long),
                         T(fw))
+            self._diag = _diagonal_facts(ca, block)
         self.fu_lat = T(a.fu_lat, torch.float32)
         self.scatter = {st: T(ca.storage_scatter[st], torch.long)
                         for st in ca.storage_order}
@@ -534,7 +567,9 @@ class Solver:
         blocked engine's closures depend only on work, so they are computed
         here once and reused by every relaxation of a fixed point (the
         reference recomputes them per relaxation; the result is the
-        same)."""
+        same).  Their mode comes from ``plan_closure``: the structure's
+        lower-triangularity (cached) and one read of max |work| bound every
+        value a closure takes by block x (max finite |d| + max |w|)."""
         n = self.ca.aidg.n
         if self.engine == "wavefront":
             pl, el, st, od, rk, width = self._wf
@@ -553,9 +588,21 @@ class Solver:
                                            device=work.device)], dim=1)
         wb = w_p.view(B, nb, block).permute(1, 0, 2).contiguous()
         steps = int(np.ceil(np.log2(max(2, block))))
-        # absorb runtime work into edge weights: m_ij = d_ij + w_i
-        clo = maxplus_closure(Dd[:, None] + wb[:, :, :, None], steps)
-        return lambda b: _blocked_relax(n, block, Ds, fs, fd, fw, wb, clo, b)
+        if block > K.CLOSURE_MAX_N:
+            # absorb runtime work into edge weights: m_ij = d_ij + w_i
+            clo = maxplus_closure(Dd[:, None] + wb[:, :, :, None], steps)
+            folded, closure_mv = _matvec_folded_general, maxplus_matvec
+        else:
+            lower, dmax = self._diag
+            wmax = float(work.abs().max()) if work.numel() else 0.0
+            variant = K.plan_closure(block, lower, block * (dmax + wmax))
+            self.closure_variant = variant
+            clo = K.maxplus_closure(Dd, steps, wb, variant=variant)
+            folded = K.maxplus_matvec_folded
+            closure_mv = (K.maxplus_matvec_lower
+                          if variant == "closure_lower" else maxplus_matvec)
+        return lambda b: _blocked_relax(n, block, Ds, fs, fd, fw, wb, clo, b,
+                                        folded, closure_mv)
 
 
 def _fixed_point_core(solver: Solver, w: Tensor, b0: Tensor,
@@ -567,36 +614,43 @@ def _fixed_point_core(solver: Solver, w: Tensor, b0: Tensor,
     (``scatter_reduce`` amax), iterate.  The arrival order is a stable
     argsort and its inverse a scatter of the identity.  ``storage_lat``
     None takes the AIDG's own latencies."""
-    ca = solver.ca
-    a = ca.aidg
     relax = solver.relax_for(w)
     t = relax(b0)
-    if not a.storage_nodes:
+    if not solver.ca.aidg.storage_nodes:
         return t
-    B = w.shape[0]
     for _ in range(n_iters):
-        b = b0
-        for st_name in ca.storage_order:
-            lats = (torch.as_tensor(a.storage_lat[st_name],
-                                    dtype=torch.float32,
-                                    device=w.device).expand(B, -1)
-                    if storage_lat is None else storage_lat[st_name])
-            nd = solver.scatter[st_name]
-            slots = a.storage_slots[st_name]
-            w_nd = w[:, nd]
-            arrival = t[:, nd] - w_nd
-            order = torch.argsort(arrival, dim=1, stable=True)
-            done_sorted = slot_queue_scan(arrival.gather(1, order),
-                                          lats.gather(1, order), slots)
-            inv = torch.empty_like(order).scatter_(
-                1, order, torch.arange(order.shape[1], device=w.device)
-                .expand(B, -1))
-            done = done_sorted.gather(1, inv)        # back to access order
-            need = done + solver.fu_lat[nd] - w_nd
-            b = b.scatter_reduce(1, nd.expand(B, -1), need, "amax",
-                                 include_self=True)
-        t = relax(b)
+        t = relax(_queue_fold(solver, w, t, b0, storage_lat))
     return t
+
+
+def _queue_fold(solver: Solver, w: Tensor, t: Tensor, b0: Tensor,
+                storage_lat: Optional[Dict[str, Tensor]]) -> Tensor:
+    """One queueing step of ``_fixed_point_core``: the bases ``b0`` with
+    each storage's service needs, from its accesses replayed in the
+    arrival order that the completion times ``t`` give."""
+    ca = solver.ca
+    a = ca.aidg
+    B = w.shape[0]
+    b = b0
+    for st_name in ca.storage_order:
+        lats = (torch.as_tensor(a.storage_lat[st_name], dtype=torch.float32,
+                                device=w.device).expand(B, -1)
+                if storage_lat is None else storage_lat[st_name])
+        nd = solver.scatter[st_name]
+        slots = a.storage_slots[st_name]
+        w_nd = w[:, nd]
+        arrival = t[:, nd] - w_nd
+        order = torch.argsort(arrival, dim=1, stable=True)
+        done_sorted = slot_queue_scan(arrival.gather(1, order),
+                                      lats.gather(1, order), slots)
+        inv = torch.empty_like(order).scatter_(
+            1, order, torch.arange(order.shape[1], device=w.device)
+            .expand(B, -1))
+        done = done_sorted.gather(1, inv)        # back to access order
+        need = done + solver.fu_lat[nd] - w_nd
+        b = b.scatter_reduce(1, nd.expand(B, -1), need, "amax",
+                             include_self=True)
+    return b
 
 
 def fixed_point_torch(aidg: AIDGLike, n_iters: int = 3, work=None, base=None,

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.aidg import explorer as port_ex
+from repro_torch.core.aidg import maxplus as port_mp
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import maxplus as K
 from repro_torch.kernels import ops
@@ -92,20 +93,164 @@ def test_kernel_rejects_what_it_cannot_take(card):
 
 def test_blocked_explorer_on_card_matches_cpu(card):
     """The default matrix on the card: θ = 1 equals the golden cycles, the
-    kernels ran and the plain versions did not, and a few random
-    candidates equal the same path on the CPU (rtol 1e-6: the kernel is
-    exact, the surrounding sums may round in another order)."""
+    closure kernel ran in lower mode with both propagation matvecs, the
+    general matmul and matvec and the plain versions did not, and a few
+    random candidates equal the same path on the CPU (rtol 1e-6: the
+    kernels are exact, the surrounding sums may round in another order)."""
     cand = port_ex.random_candidates(port_ex.DEFAULT_SPACE, 8, seed=3)
     K.reset_counts()
     ex = port_ex.Explorer(engine="blocked", device=card)
     res = ex.explore(cand)
-    assert K.LAUNCHES["maxplus_matmul"] > 0
-    assert K.LAUNCHES["maxplus_matvec"] > 0
+    assert K.LAUNCHES["maxplus_closure"] > 0
+    assert K.VARIANT_LAUNCHES["closure_lower"] == K.LAUNCHES["maxplus_closure"]
+    assert K.LAUNCHES["maxplus_matvec_lower"] > 0
+    assert K.LAUNCHES["maxplus_matvec_folded"] > 0
+    assert K.LAUNCHES["maxplus_matmul"] == 0
+    assert K.LAUNCHES["maxplus_matvec"] == 0
     assert sum(K.PLAIN_CALLS.values()) == 0
     assert ex.baselines.tolist() == GOLDEN_THETA1_CYCLES
     cpu = port_ex.Explorer(engine="blocked", device="cpu").explore(cand)
     assert np.array_equal(res.cycles[0], cpu.cycles[0])
     np.testing.assert_allclose(res.cycles, cpu.cycles, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the blocked engine's closure and propagation kernels
+# ---------------------------------------------------------------------------
+
+
+def _structure(rng, shape, lower, neg_frac=0.6):
+    """Edge delays in [0, 64) with a ``neg_frac`` share of NEG; strictly
+    lower-triangular blocks when ``lower`` (lower mode's input), dense
+    (values in [-500, 500], the diagonal too) otherwise."""
+    n = shape[-1]
+    if lower:
+        x = rng.uniform(0, 64, size=shape).astype(np.float32)
+        x[rng.random(shape) < neg_frac] = NEG
+        x[..., ~np.tril(np.ones((n, n), bool), -1)] = NEG
+        return torch.from_numpy(x)
+    return _operand(rng, shape, neg_frac)
+
+
+@pytest.mark.parametrize("n", [16, 32, 77, 128])
+@pytest.mark.parametrize("variant", ["closure_lower", "closure_full"])
+@pytest.mark.parametrize("form", ["structure + work", "whole"])
+def test_kernel_closure_equals_plain(card, n, variant, form):
+    """One launch for the batch, lower and full mode, with the work folded
+    in (3 structure blocks x 5 items) or whole blocks (7): bit for bit the
+    plain squaring loop; batches far below one wave of the grid."""
+    rng = np.random.default_rng(n + len(variant) + len(form))
+    steps = int(np.ceil(np.log2(n)))
+    lower = variant == "closure_lower"
+    if form == "whole":
+        D, w = _structure(rng, (7, n, n), lower), None
+    else:
+        D = _structure(rng, (3, n, n), lower)
+        w = torch.from_numpy(rng.uniform(1, 500, (3, 5, n))
+                             .astype(np.float32))
+    launches = K.LAUNCHES["maxplus_closure"]
+    mode = K.VARIANT_LAUNCHES[variant]
+    args = (D.to(card), steps, None if w is None else w.to(card))
+    out = K.maxplus_closure(*args, variant=variant)
+    again = K.maxplus_closure(*args, variant=variant)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["maxplus_closure"] == launches + 2
+    assert K.VARIANT_LAUNCHES[variant] == mode + 2
+    want = K.maxplus_closure_torch(D, steps, w)
+    assert out.shape == want.shape
+    assert torch.equal(out.cpu(), want)
+    assert torch.equal(out, again)              # deterministic
+
+
+@pytest.mark.parametrize("lower", [False, True])
+def test_public_closure_takes_full_mode(card, lower):
+    """``core.aidg.maxplus.maxplus_closure`` sends n <= 128 to the closure
+    kernel in full mode, one launch, whatever the structure of M: bit for
+    bit the plain squaring loop."""
+    rng = np.random.default_rng(11 + lower)
+    M = _structure(rng, (2, 3, 40, 40), lower)
+    before = dict(K.VARIANT_LAUNCHES)
+    out = port_mp.maxplus_closure(M.to(card), 6)
+    torch.cuda.synchronize()
+    assert K.VARIANT_LAUNCHES["closure_full"] == before["closure_full"] + 1
+    assert K.VARIANT_LAUNCHES["closure_lower"] == before["closure_lower"]
+    assert out.shape == M.shape
+    assert torch.equal(out.cpu(), K.maxplus_closure_torch(
+        M.reshape(6, 40, 40), 6).reshape(M.shape))
+
+
+@pytest.mark.parametrize("n,b", [(16, 5), (32, 300), (77, 33), (128, 5),
+                                 (128, 4096)])
+def test_kernel_matvec_lower_equals_plain(card, n, b):
+    """Closure blocks from lower mode times vectors with NEG entries and
+    entries past 2^35: bit for bit the general matvec on the whole block."""
+    rng = np.random.default_rng(n * b)
+    D = _structure(rng, (1, n, n), True)
+    w = torch.from_numpy(rng.uniform(1, 500, (1, b, n)).astype(np.float32))
+    C = K.maxplus_closure(D.to(card), int(np.ceil(np.log2(n))), w.to(card),
+                          variant="closure_lower")[0]
+    h = rng.uniform(-1, 1, (b, n)) * np.where(rng.random((b, n)) < 0.5,
+                                              4096.0, 2.0 ** 40)
+    h[rng.random((b, n)) < 0.2] = NEG
+    h = torch.from_numpy(h.astype(np.float32)).to(card)
+    launches = K.LAUNCHES["maxplus_matvec_lower"]
+    out = K.maxplus_matvec_lower(C, h)
+    again = K.maxplus_matvec_lower(C, h)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["maxplus_matvec_lower"] == launches + 2
+    assert torch.equal(out.cpu(), K.maxplus_matvec_torch(C.cpu(), h.cpu()))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("n,b", [(16, 5), (32, 300), (77, 33), (128, 17),
+                                 (128, 4096)])
+@pytest.mark.parametrize("all_neg", [False, True])
+def test_kernel_matvec_folded_equals_plain(card, n, b, all_neg):
+    """max(h0, (D + w) ⊗ prev) without writing D + w, also with block 0's
+    all-NEG structure: bit for bit the plain two-step version."""
+    rng = np.random.default_rng(n + b + all_neg)
+    D = (torch.full((n, n), NEG) if all_neg
+         else _structure(rng, (n, n), False, 0.8))
+    w, prev, h0 = (torch.from_numpy(rng.uniform(lo, hi, (b, n))
+                                    .astype(np.float32))
+                   for lo, hi in ((1, 500), (0, 8000), (0, 8000)))
+    prev[torch.from_numpy(rng.random((b, n)) < 0.1)] = NEG
+    launches = K.LAUNCHES["maxplus_matvec_folded"]
+    args = [t.to(card) for t in (D, w, prev, h0)]
+    out = K.maxplus_matvec_folded(*args)
+    again = K.maxplus_matvec_folded(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["maxplus_matvec_folded"] == launches + 2
+    assert torch.equal(out.cpu(), K.maxplus_matvec_folded_torch(D, w, prev,
+                                                                h0))
+    assert torch.equal(out, again)
+
+
+def test_closure_kernels_reject_what_they_cannot_take(card):
+    big = torch.zeros((2, 129, 129), device=card)
+    A = torch.zeros((2, 8, 8), device=card)
+    v = torch.zeros((2, 8), device=card)
+    with pytest.raises(ValueError, match="outside"):
+        K.maxplus_closure(big, 1)
+    with pytest.raises(ValueError, match="outside"):
+        K.maxplus_matvec_lower(big, torch.zeros((2, 129), device=card))
+    with pytest.raises(ValueError, match="outside"):
+        K.maxplus_matvec_folded(big[0], *(torch.zeros((2, 129),
+                                                      device=card),) * 3)
+    with pytest.raises(TypeError):
+        K.maxplus_closure(A.double(), 1)
+    with pytest.raises(TypeError):
+        K.maxplus_matvec_lower(A, v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        K.maxplus_closure(A.transpose(1, 2), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.maxplus_matvec_folded(A[0].t(), v, v, v)
+    with pytest.raises(ValueError, match="devices"):
+        K.maxplus_closure(A, 1, torch.zeros((2, 3, 8)))
+    with pytest.raises(ValueError, match="devices"):
+        K.maxplus_matvec_lower(A, v.cpu())
+    with pytest.raises(ValueError, match="variant"):
+        K.maxplus_closure(A, 1, variant="closure_upper")
 
 
 # ---------------------------------------------------------------------------

@@ -142,11 +142,16 @@ def test_refine_incumbent_matches_reference(ref_explorer, port_explorer):
 def test_blocked_path_runs_every_product_through_the_kernel_module(
         port_explorer, candidates):
     """On the CPU every ⊗ of the blocked path goes through the kernel
-    module's wrappers, which count their plain-version calls."""
+    module's wrappers, which count their plain-version calls: the closure
+    (planned in lower mode), the folded sub-diagonal matvec and the lower
+    closure matvec -- and no general matmul or matvec."""
     K.reset_counts()
     port_explorer.evaluate(candidates[:2])
-    assert K.PLAIN_CALLS["maxplus_matmul"] > 0
-    assert K.PLAIN_CALLS["maxplus_matvec"] > 0
+    assert K.PLAIN_CALLS["maxplus_closure"] > 0
+    assert K.PLAIN_CALLS["maxplus_matvec_folded"] > 0
+    assert K.PLAIN_CALLS["maxplus_matvec_lower"] > 0
+    assert K.PLAIN_CALLS["maxplus_matmul"] == 0
+    assert K.PLAIN_CALLS["maxplus_matvec"] == 0
     assert sum(K.LAUNCHES.values()) == 0
 
 

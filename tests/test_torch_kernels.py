@@ -97,12 +97,19 @@ def test_closure_equals_reference_closure():
 def test_cpu_tensors_take_the_plain_version_and_count_it():
     K.reset_counts()
     A = torch.zeros((2, 4, 4))
+    v = torch.zeros((2, 4))
     K.maxplus_matmul(A, A)
-    K.maxplus_matvec(A, torch.zeros((2, 4)))
-    assert K.PLAIN_CALLS == {"maxplus_matmul": 1, "maxplus_matvec": 1}
-    assert K.LAUNCHES == {"maxplus_matmul": 0, "maxplus_matvec": 0}
+    K.maxplus_matvec(A, v)
+    K.maxplus_closure(A, 2, variant="closure_lower")
+    K.maxplus_matvec_lower(A, v)
+    K.maxplus_matvec_folded(A[0], v, v, v)
+    names = ("maxplus_matmul", "maxplus_matvec", "maxplus_closure",
+             "maxplus_matvec_lower", "maxplus_matvec_folded")
+    assert K.PLAIN_CALLS == {k: 1 for k in names}
+    assert K.LAUNCHES == {k: 0 for k in names}
+    assert K.VARIANT_LAUNCHES == {"closure_lower": 0, "closure_full": 0}
     K.reset_counts()
-    assert K.PLAIN_CALLS == {"maxplus_matmul": 0, "maxplus_matvec": 0}
+    assert K.PLAIN_CALLS == {k: 0 for k in names}
 
 
 def test_wrappers_reject_bad_shapes():
