@@ -56,13 +56,19 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    1024, non-causal, Dv != Dq; the kernel ``flash_attention.plan`` picks
    for each case printed and checked against ``VARIANT_LAUNCHES`` (every
    bf16 D = 128 case on ``wgmma``); the scan at (4, 2048, 8192, 16) and
-   (2, 33, 100, 8); float32 and scan tolerances from the reference's
-   kernel tests, bf16 flash within ``bf16_error_bound`` (derived from
-   bf16 rounding); what ``-Xptxas -v`` said of the ``wgmma`` kernel
-   (registers, spills, shared memory); CUDA-event times of kernel, plain
-   version and, for flash, ``scaled_dot_product_attention`` beside the
-   bound, and at the two bf16 shapes the PR 12 ``mma.sync`` kernel too
-   (through the private launcher, held to the same bound);
+   (1, 1024, 8192, 16), jamba's two mamba shapes, and at (2, 33, 100, 8),
+   the plan ``selective_scan.plan`` picks printed and checked against
+   ``VARIANT_LAUNCHES`` (all three on the ring kernel), two calls equal
+   bit for bit, the PR 12 kernel (private launcher) held to the same
+   tolerance; float32 and scan tolerances from the reference's kernel
+   tests, bf16 flash within ``bf16_error_bound`` (derived from bf16
+   rounding); what ``-Xptxas -v`` said of the ``wgmma`` kernel and of the
+   ring scan's planned instance (registers, spills, shared memory);
+   CUDA-event times of kernel, plain version and, for flash,
+   ``scaled_dot_product_attention`` beside the bound, at the two bf16
+   shapes the PR 12 ``mma.sync`` kernel too (through the private launcher,
+   held to the same bound), and at the scan's two jamba shapes the PR 12
+   scan kernel, both also as device time (CUDA-graph replay);
 7. jamba-v0.1-52b at full width, layers 0-7 (one pattern period: 1
    attention, 7 mamba, 4 MoE layers), float32 weights from a seed, B = 1,
    S = 1024: ``lm.forward`` with the kernel impls against the plain impls
@@ -78,7 +84,8 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    ``init_cache``, ``lm.prefill(impl="flash_pallas")`` on a 512-token
    prompt, 32 greedy ``decode_step``s -- with the counters zeroed just
    before and read just after each (flash once -- on the ``wgmma`` kernel
-   -- and the scan 7 times per forward, no plain version on the card);
+   -- and the scan 7 times per forward, on the ring kernel, no plain
+   version on the card);
    peak memory, and one scoring forward under ``torch.profiler``;
 9. the systolic GEMM through ``kernels.ops.gemm`` at olmo-1b's distinct
    GEMM shapes, as the port's ``extract_operators`` gives them (decode at
@@ -248,10 +255,12 @@ def rate(cells: int, secs) -> float:
     return cells * N_CAND / float(np.median(secs))
 
 
-def profile_call(fn, label: str) -> None:
+def profile_call(fn, label: str, watch=()) -> None:
     """One call of ``fn`` under ``torch.profiler``: device time by kernel
-    and the share of the host-clock span the device was busy.  Prints "not
-    measured" when the profiler records no device time."""
+    and the share of the host-clock span the device was busy, and the
+    summed device time of the kernels whose names hold each string of
+    ``watch``.  Prints "not measured" when the profiler records no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -282,6 +291,10 @@ def profile_call(fn, label: str) -> None:
     for name, us in top:
         print(f"  {us / 1e3:9.2f} ms {100 * us / total:5.1f}%  {name[:90]}",
               flush=True)
+    for part in watch:
+        us = sum(v for k, v in dev_us.items() if part in k)
+        print(f"  kernels named *{part}*: {us / 1e3:.2f} ms "
+              f"{100 * us / total:.1f}% of the device time", flush=True)
 
 
 def bound(triples: int, nbytes: int):
@@ -821,40 +834,68 @@ def lm_kernel_phase(FA, SS, dev):
         flash_case("non-causal", 8, 2, 1000, D, D, dtype, causal=False)
         flash_case("Dv != Dq", 8, 2, 1024, D, 64, dtype)
 
-    # the scan at jamba's mamba shape, then a ragged one
+    # the scan at jamba's two mamba shapes (scoring, the float32 check),
+    # then a ragged one
     di = get_config(LM_ARCH).ssm.d_inner(get_config(LM_ARCH).d_model)
     n = get_config(LM_ARCH).ssm.d_state
-    for (bsz, s, dm, ns) in ((SCORE_B, SCORE_S, di, n), (2, 33, 100, 8)):
+    ss_log = _build.library_path(SS.SOURCE).with_suffix(".log").read_text()
+    cases = []
+    for (bsz, s, dm, ns) in ((SCORE_B, SCORE_S, di, n), (F32_B, F32_S, di, n),
+                             (2, 33, 100, 8)):
         x = rand((bsz, s, dm), scale=0.5)
         dt = rand((bsz, s, dm), scale=0.1).abs()
         b, c = rand((bsz, s, ns)), rand((bsz, s, ns))
         A = -(rand((dm, ns)).abs() + 0.1)
         d = rand((dm,))
-        out = SS.selective_scan(x, dt, b, c, A, d)
-        want = SS.selective_scan_torch(x, dt, b, c, A, d)
+        ins = (x, dt, b, c, A, d)
+        p = SS.plan(bsz, s, dm, ns, SS._aligned16(x, dt))
+        label = f"selective_scan ({bsz}, {s}, {dm}, {ns})"
+        check(p.variant == "ring", f"{label}: planned {p.variant}, not ring")
+        before = dict(SS.VARIANT_LAUNCHES)
+        out = SS.selective_scan(*ins)
+        again = SS.selective_scan(*ins)
+        ran = {v: SS.VARIANT_LAUNCHES[v] - before[v] for v in SS.VARIANTS}
+        check(ran == {v: 2 * (v == p.variant) for v in SS.VARIANTS},
+              f"{label}: planned {p.variant}, ran {ran}")
+        check(torch.equal(out, again), f"{label}: two calls differ")
+        want = SS.selective_scan_torch(*ins)
         err, bad = within(out, want, SCAN_TOL)
-        print(f"selective_scan ({bsz}, {s}, {dm}, {ns}): max |kernel - "
-              f"plain| {err:.3e}, {bad} elements outside atol/rtol "
-              f"{SCAN_TOL}", flush=True)
-        check(bad == 0, f"selective_scan ({bsz}, {s}, {dm}, {ns}): {bad} "
-                        f"elements outside {SCAN_TOL}, max |err| {err:.3e}")
-        if s == SCORE_S:
-            ms = cuda_ms(lambda: SS.selective_scan(x, dt, b, c, A, d),
-                         reps=10)
-            plain_ms = cuda_ms(lambda: SS.selective_scan_torch(
-                x, dt, b, c, A, d), reps=1)
+        old_err, old_bad = within(SS._launch(*ins, "pr12"), want, SCAN_TOL)
+        print(f"{label} {p}: max |kernel - plain| {err:.3e}, {bad} elements "
+              f"outside atol/rtol {SCAN_TOL}; two calls bit for bit equal; "
+              f"the PR 12 kernel {old_err:.3e}, {old_bad} outside",
+              flush=True)
+        check(bad == 0 and old_bad == 0,
+              f"{label}: {bad} (PR 12 kernel: {old_bad}) elements outside "
+              f"{SCAN_TOL}, max |err| {err:.3e} ({old_err:.3e})")
+        if dm == di:
+            ms = cuda_ms(lambda: SS.selective_scan(*ins), reps=10)
+            old_ms = cuda_ms(lambda: SS._launch(*ins, "pr12"), reps=10)
+            dev_ms = graph_ms([lambda: SS.selective_scan(*ins)], 10)
+            old_dev_ms = graph_ms([lambda: SS._launch(*ins, "pr12")], 10)
+            plain_ms = cuda_ms(lambda: SS.selective_scan_torch(*ins), reps=1)
             bms, by = scan_bound(x, b)
-            print(f"selective_scan path shape: kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), "
-                  f"{100 * bms / ms:.1f}% of bound; no PyTorch call "
-                  f"computes this scan", flush=True)
-            rows["selective_scan"] = dict(
-                shape=[bsz, s, dm, ns], dtype="float32", ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=None, max_abs_err=err,
-                source="src/repro_torch/csrc/selective_scan.cu",
-                replaces="src/repro/kernels/selective_scan.py:29")
-        del x, dt, b, c, A, d, out, want
+            print(f"{label} [ring, {p.lanes} lanes]: kernel {ms:.4f} ms "
+                  f"(device {dev_ms:.4f}; {100 * bms / ms:.1f}% of bound "
+                  f"{bms:.4f} ms, {by}); PR 12 kernel {old_ms:.4f} ms (device "
+                  f"{old_dev_ms:.4f}; {old_ms / ms:.2f}x the ring kernel's "
+                  f"time); plain {plain_ms:.3f} ms; no PyTorch call computes "
+                  f"this scan", flush=True)
+            cases.append(dict(
+                shape=[bsz, s, dm, ns], plan=list(p[:5]) + [list(p.grid)],
+                ms=ms, device_ms=dev_ms, pr12_ms=old_ms,
+                pr12_device_ms=old_dev_ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, max_abs_err=err))
+        del x, dt, b, c, A, d, ins, out, again, want
+    kern = (f"selective_scan_ring_kernelILi{cases[0]['plan'][1]}ELi"
+            f"{SS.padded_states(n)}E")
+    print(f"selective_scan ring kernel at the path shape ({kern}), nvcc "
+          f"-Xptxas -v: {ptxas_summary(ss_log, kern)}; dynamic shared memory "
+          f"{SS.ring_smem_bytes(cases[0]['plan'][1], n)} B", flush=True)
+    rows["selective_scan"] = dict(
+        cases[0], dtype="float32", library_ms=None, variant="ring",
+        cases=cases, source="src/repro_torch/csrc/selective_scan.cu",
+        replaces="src/repro/kernels/selective_scan.py:29")
     torch.cuda.empty_cache()
     return rows
 
@@ -863,18 +904,21 @@ def lm_counts(FA, SS) -> dict:
     return {"flash_attention": FA.LAUNCHES["flash_attention"],
             "flash_wgmma": FA.VARIANT_LAUNCHES["wgmma"],
             "selective_scan": SS.LAUNCHES["selective_scan"],
+            "scan_ring": SS.VARIANT_LAUNCHES["ring"],
             "plain": FA.PLAIN_CALLS["flash_attention"]
             + SS.PLAIN_CALLS["selective_scan"]}
 
 
 def check_forward_counts(counts: dict, what: str, wgmma: int) -> None:
     """One forward of layers 0-7: flash once (through the wgmma kernel
-    ``wgmma`` times: once in bf16, never in float32), the scan 7 times."""
+    ``wgmma`` times: once in bf16, never in float32), the scan 7 times,
+    all on the ring kernel."""
     check(counts == {"flash_attention": 1, "flash_wgmma": wgmma,
-                     "selective_scan": LM_LAYERS - 1, "plain": 0},
+                     "selective_scan": LM_LAYERS - 1,
+                     "scan_ring": LM_LAYERS - 1, "plain": 0},
           f"{what}: launches {counts}, expected flash attention once "
           f"({wgmma} times the wgmma kernel), the scan {LM_LAYERS - 1} times "
-          f"and no plain version")
+          f"on the ring kernel and no plain version")
 
 
 def bf16_agreement(lm, params, plain_cfg, kern_cfg, toks, f32_logits):
@@ -1038,7 +1082,7 @@ def jamba_phases(FA, SS, dev) -> dict:
     decode_s = time.perf_counter() - t
     gen_counts = lm_counts(FA, SS)
     check(gen_counts == {"flash_attention": 1, "flash_wgmma": 1,
-                         "selective_scan": 0, "plain": 0},
+                         "selective_scan": 0, "scan_ring": 0, "plain": 0},
           f"generation: launches {gen_counts}, expected flash attention "
           f"once, through the wgmma kernel (prefill; the scan runs chunked "
           f"under a cache, decode has no kernel) and no plain version")
@@ -1052,7 +1096,8 @@ def jamba_phases(FA, SS, dev) -> dict:
           f"first row {out[0, :8].tolist()}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     profile_call(lambda: model.logits(params, batch),
-                 f"jamba scoring forward B={SCORE_B} S={SCORE_S}")
+                 f"jamba scoring forward B={SCORE_B} S={SCORE_S}",
+                 watch=("selective_scan", "flash_attention"))
     return {k: score_counts[k] + gen_counts[k]
             for k in ("flash_attention", "selective_scan")}
 
@@ -1341,13 +1386,14 @@ def packed_phase(modules, dev, blocked_cycles):
 
 
 # what a kernel's row may carry beside the contract's keys (the chosen
-# kernel of the GEMM and of flash attention, device times, the mma.sync
-# kernels' times, every case; the closure's full mode and dense bound, and
-# the time of the general-kernel path each of the blocked engine's entries
-# replaced)
-EXTRA_KEYS = ("variant", "launch_ms", "device_ms", "library_device_ms",
-              "old_kernel_ms", "old_kernel_device_ms", "cases",
-              "full_mode_ms", "dense_bound_ms", "old_path_ms")
+# kernel of the GEMM, flash attention and the scan, the scan's plan, device
+# times, the mma.sync kernels' and the PR 12 scan kernel's times, every
+# case; the closure's full mode and dense bound, and the time of the
+# general-kernel path each of the blocked engine's entries replaced)
+EXTRA_KEYS = ("variant", "plan", "launch_ms", "device_ms",
+              "library_device_ms", "old_kernel_ms", "old_kernel_device_ms",
+              "pr12_ms", "pr12_device_ms", "cases", "full_mode_ms",
+              "dense_bound_ms", "old_path_ms")
 
 
 def main() -> int:

@@ -403,23 +403,72 @@ def test_mma_sync_flash_kernel_still_matches_plain(card, bh, bkv, sq, sk,
     assert_flash_close(out, q, k, v, causal=causal, window=window)
 
 
-@pytest.mark.parametrize("B,S,D,N", [(2, 16, 32, 4), (1, 64, 128, 16),
-                                     (2, 33, 48, 8), (1, 20, 100, 8),
-                                     (2, 33, 100, 8), (1, 130, 260, 16)])
-def test_kernel_selective_scan_matches_plain(card, B, S, D, N):
+def _scan_inputs(card, B, S, D, N, offset=0):
+    """Scan inputs from a seed; ``offset`` > 0 makes x and dt contiguous
+    views that start ``offset`` floats into their storage (misaligned for
+    TMA when offset % 4 != 0)."""
     rng = np.random.default_rng(B * S + D + N)
-    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(card)
+
+    def f(a):
+        flat = np.zeros(a.size + offset, np.float32)
+        flat[offset:] = a.ravel()
+        return torch.from_numpy(flat).to(card)[offset:].view(a.shape)
     x = f(rng.normal(size=(B, S, D)) * 0.5)
     dt = f(np.abs(rng.normal(size=(B, S, D))) * 0.1)
     b, c = f(rng.normal(size=(B, S, N))), f(rng.normal(size=(B, S, N)))
     a = f(-(np.abs(rng.normal(size=(D, N))) + 0.1))
     d = f(rng.normal(size=(D,)))
+    return x, dt, b, c, a, d
+
+
+@pytest.mark.parametrize("B,S,D,N,offset", [
+    (2, 16, 32, 4, 0), (1, 64, 128, 16, 0), (2, 33, 48, 8, 0),
+    (1, 20, 100, 8, 0), (2, 33, 100, 8, 0), (1, 130, 260, 16, 0),
+    (2, 40, 64, 1, 0), (1, 50, 96, 3, 0), (2, 17, 36, 5, 0),  # N 1, 3, 5
+    (3, 1, 128, 16, 0), (1, 1, 100, 5, 0),                  # S = 1
+    (2, 47, 512, 16, 0), (1, 100, 200, 8, 0),  # S not a multiple of 16
+    (1, 70, 8192, 16, 0),                                   # D 8192, B 1
+    (2, 33, 100, 8, 1), (1, 64, 128, 16, 3),                # misaligned
+])
+def test_kernel_selective_scan_matches_plain(card, B, S, D, N, offset):
+    """The kernel ``plan`` picks (the ring, or the PR 12 kernel for a
+    misaligned view or D % 4 != 0) against the plain version; two calls
+    equal bit for bit; the PR 12 kernel on the same inputs within the
+    same tolerance."""
+    x, dt, b, c, a, d = ins = _scan_inputs(card, B, S, D, N, offset)
+    p = SS.plan(B, S, D, N, SS._aligned16(x, dt))
+    assert p.variant == ("pr12" if offset % 4 else "ring")
     launches = SS.LAUNCHES["selective_scan"]
-    out = SS.selective_scan(x, dt, b, c, a, d)
+    before = dict(SS.VARIANT_LAUNCHES)
+    out = SS.selective_scan(*ins)
+    again = SS.selective_scan(*ins)
     torch.cuda.synchronize()
-    assert SS.LAUNCHES["selective_scan"] == launches + 1
-    torch.testing.assert_close(out, SS.selective_scan_torch(x, dt, b, c, a,
-                                                            d), **SCAN_TOL)
+    assert SS.LAUNCHES["selective_scan"] == launches + 2
+    assert {v: SS.VARIANT_LAUNCHES[v] - before[v] for v in SS.VARIANTS} == {
+        v: 2 * (v == p.variant) for v in SS.VARIANTS}
+    assert torch.equal(out, again)
+    want = SS.selective_scan_torch(*ins)
+    torch.testing.assert_close(out, want, **SCAN_TOL)
+    torch.testing.assert_close(SS._launch(*ins, "pr12"), want, **SCAN_TOL)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+def test_ring_kernel_every_lane_count_matches_plain(card, lanes):
+    """Every lane split the library has, at a ragged D and S (the sweep
+    ``tools/scan_breakdown.py`` times), and the library's shared memory
+    as ``ring_smem_bytes`` mirrors it."""
+    x, dt, b, c, a, d = ins = _scan_inputs(card, 2, 37, 200, 16)
+    before = SS.VARIANT_LAUNCHES["ring"]
+    out = SS._launch(*ins, SS.ring_plan(2, 200, lanes))
+    torch.cuda.synchronize()
+    assert SS.VARIANT_LAUNCHES["ring"] == before + 1
+    torch.testing.assert_close(out, SS.selective_scan_torch(*ins), **SCAN_TOL)
+    lib = SS._build.load(SS.SOURCE, SS._bind)
+    assert lib.selective_scan_ring_steps() == SS.RING_STEPS
+    for n in (1, 5, 16):
+        if lanes <= SS.padded_states(n):
+            assert (lib.selective_scan_ring_smem_bytes(
+                lanes, SS.padded_states(n)) == SS.ring_smem_bytes(lanes, n))
 
 
 def test_flash_attention_unaligned_bf16_matches_plain(card):
@@ -476,6 +525,7 @@ def test_lm_forward_on_card_goes_through_the_kernels(card, exact_f32):
                                            ssm_impl="pallas"), toks)
     assert FA.LAUNCHES["flash_attention"] == 1
     assert SS.LAUNCHES["selective_scan"] == 7
+    assert SS.VARIANT_LAUNCHES["ring"] == 7
     assert FA.PLAIN_CALLS["flash_attention"] == 0
     assert SS.PLAIN_CALLS["selective_scan"] == 0
     plain = port_lm.forward(params, cfg, toks)
