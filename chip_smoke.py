@@ -110,6 +110,26 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    rate over 4096 candidates (median of 3 after a warm-up), the device's
    idle share from one profiled explore and peak memory; no plain version
    of any kernel may run;
+11. the DSE query service (``repro_torch.serve``) over phase 10's
+   Explorer, the kernels' counters zeroed just before and read just after
+   (the serving path reaches no kernel and no plain version): (a) 8 client
+   threads x 168 queries (the 21 distinct questions of
+   ``benchmarks/bench_serve.py``'s CPU row, 8 times each) on a fresh
+   service (pool 128, chunk 128, max batch 8, window 5 ms) after a warm
+   one -- q/s, hit ratio, windows, device dispatches, mean batch,
+   configs/s, cells -- every answer equal to a direct ``evaluate_full``
+   plus ranking of the same block and to a sequential replay; (b) the
+   surrogate trained on the card (``train_surrogate``, default config),
+   held on 48 fresh draws to ``tests/test_oracle_chain.py``'s bounds
+   (each cell's coverage >= 0.85 and median within its bound, matrix-wide
+   medians <= 2%, cells over the 2% routing bound <= 30%), the
+   surrogate-only and packed-only cold streams timed per query; (c) a
+   fault plan that opens the breaker: covered queries answered
+   ``surrogate-degraded`` with the widened bound, uncovered ones
+   ``OracleUnavailable``, exact packed answers after the probe, equal to
+   those before; (d) ``n_shards()`` against ``torch.cuda.device_count()``,
+   ``evaluate_full(sharded=True)`` and the split forced over four slices
+   of the card, bit for bit the unsharded evaluation;
 
 each phase's time, then one ``{"kernels": [...]}`` line, the card line
 again, and as the last line ``{"ok": true, "device": {...}}``.  It needs
@@ -169,6 +189,22 @@ PREFILL_B, PREFILL_S = 4, 2048
 # the two order a queue's tied arrivals differently (the reference's own
 # notes allow about 0.3%)
 PACKED_VS_BLOCKED = 3e-3
+
+# -- the DSE query service over phase 10's Explorer --------------------------
+# benchmarks/bench_serve.py's serve/throughput row: 8 clients, each distinct
+# question 8 times, a pool of 128 candidates evaluated 128 rows at a time
+SERVE_KW = dict(pool=128, chunk=128, max_batch=8, window_s=0.005)
+SERVE_CLIENTS = 8
+SERVE_REPS = 8
+# the surrogate against fresh draws: tests/test_oracle_chain.py's bounds
+N_FRESH = 48
+FRESH_SEED = 20260808
+COVERAGE_MIN = 0.85    # share of draws inside each cell's own bound
+MEDIAN_MAX = 0.02      # matrix-wide median relative error
+INELIGIBLE_MAX = 0.30  # share of cells over the default routing bound
+# the sharded evaluator's split, one card standing in for four
+SHARD_SLICES = 4
+SHARD_BATCH = 1003     # not a multiple of 4: the split pads
 
 # θ = 1 cycles of the 10 default cells, pinned in the reference's tests
 GOLDEN_THETA1_CYCLES = {
@@ -1322,7 +1358,8 @@ def packed_phase(modules, dev, blocked_cycles):
     """Phase 10: ``Explorer(networks=True)`` with the default engine, its
     goldens, packed vs the blocked engine on the operator cells, rate,
     idle share and memory.  ``blocked_cycles``: phase 4's (N_CROSS, 10)
-    blocked cycles on the same seed-0 candidates."""
+    blocked cycles on the same seed-0 candidates.  Returns the Explorer
+    (phase 11 serves it)."""
     from repro_torch.core.aidg.explorer import (DEFAULT_SPACE, Explorer,
                                                 random_candidates)
     cand = random_candidates(DEFAULT_SPACE, N_CAND, seed=0)
@@ -1380,9 +1417,281 @@ def packed_phase(modules, dev, blocked_cycles):
           f"{len(res.pareto)}; peak device memory {peak / 2**30:.2f} GiB",
           flush=True)
     profile_call(lambda: ex.explore(cand), "packed explore, 31 cells")
-    del ex, res
-    gc.collect()
-    torch.cuda.empty_cache()
+    return ex
+
+# ---------------------------------------------------------------------------
+# phase 11: the DSE query service over the packed Explorer
+# ---------------------------------------------------------------------------
+
+
+def serve_stream(ex) -> list:
+    """``benchmarks/bench_serve.py::_query_stream``'s questions: per
+    workload a full-matrix, a top-3 and an override query, and one query
+    per architecture -- over the operator cells' workloads and
+    architectures, the 21 distinct questions of the reference's CPU row
+    (an architecture query resolves over its network cells too)."""
+    from repro_torch.serve import Query
+    op = [cs for cs in ex.compiled if cs.name in GOLDEN_THETA1_CYCLES]
+    knob = ex.space.names[0]
+    qs = []
+    for w in sorted({cs.workload for cs in op}):
+        qs += [Query.make(workload=w), Query.make(workload=w, top_k=3),
+               Query.make(workload=w, overrides={knob: 2.0})]
+    return qs + [Query.make(archs=[a]) for a in sorted({cs.arch
+                                                        for cs in op})]
+
+
+def direct_answer(ex, pool, q, evaluated):
+    """The oracle of ``tests/test_torch_serve.py``: the answer re-derived
+    from a direct ``evaluate_full`` of the query's candidate block (no
+    service, no batching, no cache) and the documented ranking.
+    ``evaluated`` caches the evaluation per override signature."""
+    from repro_torch.core.aidg.explorer import pareto_front, resolve_cells
+    from repro_torch.serve import Answer, Design
+    cand = pool.copy()
+    for name, val in q.overrides:
+        cand[:, ex.space.names.index(name)] = val
+    if q.overrides not in evaluated:
+        evaluated[q.overrides] = ex.evaluate_full(cand)
+    cycles, energy_pj = evaluated[q.overrides]
+    cols = np.asarray(resolve_cells(ex.compiled, workload=q.workload,
+                                    archs=q.archs))
+    rel = cycles[:, cols] / ex.baselines[None, cols]
+    latency = rel.mean(axis=1)
+    energy = (energy_pj[:, cols]
+              / ex.energy_baselines[None, cols]).mean(axis=1)
+    cost = ex.cost_proxy(cand)
+    top = pareto_front(np.stack([latency, energy, cost], axis=1))[: q.top_k]
+    designs = tuple(
+        Design(theta=tuple(float(v) for v in cand[i]),
+               latency=float(latency[i]), energy=float(energy[i]),
+               cost=float(cost[i]),
+               cycles=tuple(float(c) for c in cycles[i, cols]))
+        for i in top)
+    lead = int(top[0]) if len(top) else int(np.argmin(latency))
+    best_arch = ex.compiled[int(cols[int(np.argmin(rel[lead]))])].arch
+    return Answer(query=q, cells=tuple(ex.compiled[i].name for i in cols),
+                  designs=designs, best_arch=best_arch)
+
+
+def serve_throughput(ex, distinct):
+    """(a) 8 client threads over the stream on a fresh service after a
+    warm one; every answer held to the direct oracle and to a sequential
+    replay."""
+    from repro_torch.serve import DSEService
+    stream = distinct * SERVE_REPS
+    with DSEService(ex, **SERVE_KW) as warm:
+        warm.query_many(distinct)
+    svc = DSEService(ex, **SERVE_KW)
+    try:
+        t = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_CLIENTS) as tp:
+            answers = list(tp.map(svc.query, stream))
+        dt = time.perf_counter() - t
+        st = svc.stats()
+    finally:
+        svc.close()
+    pool = svc.pool
+    n, cs = len(stream), st["cache"]
+    check(cs["hits"] + cs["coalesced"] + cs["misses"] == n,
+          f"cache counters {cs} do not account for {n} queries")
+    check(cs["misses"] == len(distinct) and st["hit_ratio"] > 0.0,
+          f"each distinct question is evaluated once: {cs}")
+    check(st["cells"] == len(ex.compiled) and all(
+        a.tier == "packed" for a in answers), "packed answers, all cells")
+    configs = st["dispatched_candidates"] * st["cells"]
+    print(f"serve throughput: {SERVE_CLIENTS} clients, {n} queries "
+          f"({len(distinct)} distinct), pool {SERVE_KW['pool']}, "
+          f"{st['cells']} cells: {dt:.3f} s -> {n / dt:.1f} q/s; hit ratio "
+          f"{st['hit_ratio']:.3f} ({cs}); windows {st['windows']}, device "
+          f"dispatches {st['device_dispatches']}, mean batch "
+          f"{st['mean_batch']:.2f}; {configs / dt:.0f} configs/s "
+          f"(cell-candidates)", flush=True)
+    with DSEService(ex, **SERVE_KW) as ref:
+        replay = ref.query_many(stream)
+    check(answers == replay, "threaded answers equal the sequential replay")
+    evaluated = {}
+    for q, a in zip(stream, answers):
+        check(a == direct_answer(ex, pool, q, evaluated),
+              f"served answer != direct evaluate_full + ranking for {q}")
+    print(f"serve: all {n} answers equal a direct evaluate_full + ranking "
+          f"of the same block bit for bit, and the sequential replay",
+          flush=True)
+    secs = [timed(lambda: ex.evaluate_full(pool)) for _ in range(3)]
+    print(f"serve: one {len(pool)}-row packed chunk over {len(ex.compiled)} "
+          f"cells, 3 runs {fmt(secs)} s", flush=True)
+    profile_call(lambda: ex.evaluate_full(pool),
+                 f"serve: one {len(pool)}-row packed chunk")
+
+
+def serve_surrogate(ex, distinct):
+    """(b) train the surrogate on the card (default config), hold it to
+    the oracle-chain bounds on fresh draws, and time the surrogate-only
+    and packed-only cold streams."""
+    from repro_torch.serve import DSEService
+    from repro_torch.surrogate import evaluate_surrogate, train_surrogate
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    bundle = train_surrogate(ex)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    rep = evaluate_surrogate(bundle, ex, n=N_FRESH, seed=FRESH_SEED)
+    bound = bundle.err_bound[None, :]
+    cov_lat = np.mean(rep["err_latency"] <= bound, axis=0)
+    cov_en = np.mean(rep["err_energy"] <= bound, axis=0)
+    med_cell = np.median(rep["err_latency"], axis=0)
+    inelig = float(np.mean(bundle.err_bound > 0.02))
+    print(f"surrogate: trained on the card in {train_s:.2f} s "
+          f"({bundle.meta['n_train']} train / {bundle.meta['n_holdout']} "
+          f"held out, {bundle.meta['config']['steps']} steps); "
+          f"{N_FRESH} fresh draws: median latency error "
+          f"{rep['median_latency_err']:.5f}, energy "
+          f"{rep['median_energy_err']:.5f}; coverage min latency "
+          f"{cov_lat.min():.3f}, energy {cov_en.min():.3f}; cells over "
+          f"the 2% routing bound {inelig:.3f} "
+          f"({int(np.sum(bundle.err_bound > 0.02))} of {bundle.n_cells})",
+          flush=True)
+    for i, name in enumerate(bundle.cell_names):
+        check(bundle.err_bound[i] > 0.0, f"{name}: bound 0")
+        check(cov_lat[i] >= COVERAGE_MIN and cov_en[i] >= COVERAGE_MIN,
+              f"{name}: coverage {cov_lat[i]:.3f} / {cov_en[i]:.3f} < "
+              f"{COVERAGE_MIN} inside bound {bundle.err_bound[i]:.4f}")
+        check(med_cell[i] <= bundle.err_bound[i],
+              f"{name}: median error {med_cell[i]} over its bound")
+    check(rep["median_latency_err"] <= MEDIAN_MAX
+          and rep["median_energy_err"] <= MEDIAN_MAX,
+          f"matrix-wide medians {rep['median_latency_err']}, "
+          f"{rep['median_energy_err']} > {MEDIAN_MAX}")
+    check(inelig <= INELIGIBLE_MAX,
+          f"{inelig:.3f} of the cells over the routing bound")
+
+    kw = {k: v for k, v in SERVE_KW.items() if k != "window_s"}
+    with DSEService(ex, surrogate=bundle, surrogate_max_err=np.inf,
+                    **kw) as warm:
+        warm.query_many(distinct)
+
+    def cold_run(**extra):
+        svc = DSEService(ex, **kw, **extra)
+        try:
+            t = time.perf_counter()
+            svc.query_many(distinct)
+            return time.perf_counter() - t, svc.stats()
+        finally:
+            svc.close()
+
+    n = len(distinct)
+    t_sur, st_sur = cold_run(surrogate=bundle, surrogate_max_err=np.inf)
+    t_pkd, st_pkd = cold_run()
+    _, st_def = cold_run(surrogate=bundle)
+    check(st_sur["tiers"]["surrogate"] == n and st_pkd["tiers"]["packed"]
+          == n, f"tier routing: {st_sur['tiers']} / {st_pkd['tiers']}")
+    print(f"surrogate tier: {t_sur / n * 1e6:.0f} us/query against packed "
+          f"{t_pkd / n * 1e6:.0f} us/query over {n} cold queries -> "
+          f"{t_pkd / t_sur:.1f}x; the stream's fallback rate at the default "
+          f"threshold ({st_def['surrogate_max_err']}) "
+          f"{st_def['fallback_rate']:.3f}", flush=True)
+    return bundle
+
+
+def serve_faults(ex, bundle):
+    """(c) a fault plan opens the breaker: covered queries degrade to the
+    surrogate with the widened bound, uncovered ones fail fast; after the
+    probe the exact packed answers return, equal to those before."""
+    from repro_torch.core.aidg.explorer import resolve_cells
+    from repro_torch.serve import (DEGRADED_WIDEN, CircuitBreaker,
+                                   DSEService, OracleUnavailable, Query,
+                                   RetryPolicy)
+    op = [cs for cs in ex.compiled if cs.name in GOLDEN_THETA1_CYCLES]
+    queries = [Query.make(workload=cs.workload, archs=[cs.arch])
+               for cs in op]
+    # cover the cells whose bound is at or under the median: both sides
+    # of the ladder are taken
+    col = lambda q: resolve_cells(ex.compiled, workload=q.workload,
+                                  archs=q.archs)
+    bounds = np.array([bundle.err_bound[col(q)].max() for q in queries])
+    cut = float(np.median(bounds))
+    covered = bounds <= cut
+    check(covered.any() and not covered.all(), f"bounds {bounds}")
+    kw = {k: v for k, v in SERVE_KW.items() if k != "window_s"}
+    with DSEService(ex, **kw) as clean:
+        before = clean.query_many(queries)
+    svc = DSEService(ex, **kw, surrogate=bundle, surrogate_max_err=-1.0,
+                     degraded_max_err=cut,
+                     retry=RetryPolicy(max_attempts=1, base_s=0.0),
+                     breaker=CircuitBreaker(open_after=1, probe_after=1),
+                     fault_plan="packed[0]=error")
+    try:
+        out = svc.query_many(queries, return_exceptions=True)
+        check(svc.breaker.state == "open", f"breaker {svc.breaker.state}")
+        for q, o, cov, b in zip(queries, out, covered, bounds):
+            if cov:
+                check(not isinstance(o, BaseException)
+                      and o.tier == "surrogate-degraded"
+                      and o.err_bound == DEGRADED_WIDEN * b,
+                      f"{q}: {o!r} is not a degraded answer with bound "
+                      f"{DEGRADED_WIDEN * b}")
+            else:
+                check(isinstance(o, OracleUnavailable),
+                      f"{q}: {o!r}, expected OracleUnavailable")
+        probe = svc.query_many([Query.make(workload="gemm", top_k=17)])[0]
+        check(probe.tier == "packed" and svc.breaker.state == "closed",
+              f"probe tier {probe.tier}, breaker {svc.breaker.state}")
+        after = svc.query_many(queries)
+        check(all(a.tier == "packed" for a in after) and after == before,
+              "exact packed answers after recovery equal those before")
+        st = svc.stats()
+    finally:
+        svc.close()
+    print(f"faults: breaker {st['breaker']['transitions']}; "
+          f"{int(covered.sum())} covered queries answered surrogate-degraded "
+          f"(bound x{DEGRADED_WIDEN}), {int((~covered).sum())} failed fast "
+          f"(OracleUnavailable); after the probe {len(after)} exact packed "
+          f"answers equal to those before the faults; tiers {st['tiers']}",
+          flush=True)
+
+
+def serve_sharded(ex):
+    """(d) the sharded evaluator on this card, and its split forced over
+    four slices of the one card, bit for bit the unsharded result."""
+    from repro_torch.core.aidg.explorer import random_candidates
+    pm = ex.packed_matrix()
+    n = pm.n_shards()
+    check(n == torch.cuda.device_count(), f"n_shards {n}")
+    cand = random_candidates(ex.space, SHARD_BATCH, seed=2)
+    cycles, energy = pm.evaluate_full(cand)
+    c, e = pm.evaluate_full(cand, sharded=True)
+    check(np.array_equal(c, cycles) and np.array_equal(e, energy),
+          "evaluate_full(sharded=True) != unsharded")
+    dev = pm.device
+    c, e = pm._evaluate_split(cand, None, [dev] * SHARD_SLICES)
+    check(np.array_equal(c, cycles) and np.array_equal(e, energy),
+          f"the split over {SHARD_SLICES} slices != unsharded")
+    print(f"sharded: {n} device(s) (torch.cuda.device_count() "
+          f"{torch.cuda.device_count()}); evaluate_full(sharded=True) and "
+          f"the split forced over {SHARD_SLICES} slices of {dev} equal the "
+          f"unsharded evaluation bit for bit at B = {SHARD_BATCH}, "
+          f"{pm.n_cells} cells", flush=True)
+
+
+def serve_phase(ex, modules):
+    """Phase 11: the DSE query service over phase 10's Explorer, with the
+    kernels' counters zeroed just before and read just after (the serving
+    path reaches no kernel and no plain version)."""
+    for mod in modules:
+        mod.reset_counts()
+    distinct = serve_stream(ex)
+    serve_throughput(ex, distinct)
+    bundle = serve_surrogate(ex, distinct)
+    serve_faults(ex, bundle)
+    serve_sharded(ex)
+    counts = {f"{kind}{k}": v for mod in modules
+              for kind, d in (("", mod.LAUNCHES), ("plain ", mod.PLAIN_CALLS))
+              for k, v in d.items()}
+    check(sum(counts.values()) == 0, f"kernels or plain versions ran on "
+                                     f"the serving path: {counts}")
+    print(f"serve: kernel launches and plain calls across phase 11 "
+          f"{counts}", flush=True)
+
 
 
 # what a kernel's row may carry beside the contract's keys (the chosen
@@ -1566,8 +1875,15 @@ def main() -> int:
     phase_done("9 (systolic GEMM)")
 
     # -- 10. the default packed Explorer, 31 cells ---------------------------
-    packed_phase((K, FA, SS, SG), dev, blocked_cycles)
+    ex = packed_phase((K, FA, SS, SG), dev, blocked_cycles)
     phase_done("10 (packed Explorer)")
+
+    # -- 11. the DSE query service over it -----------------------------------
+    serve_phase(ex, (K, FA, SS, SG))
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("11 (serve)")
 
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[name],

@@ -8,7 +8,9 @@ instance the reference package's — so one graph can be fed to both.
 ``lm_params_from_numpy`` does the same for an LM: it takes the reference's
 parameter pytree as numpy arrays and returns the port's ``LM`` module.
 ``cast_params`` casts a module's weights to the compute dtype once, in
-place.
+place.  ``surrogate_params_from_numpy`` carries a surrogate's stacked
+parameters (the reference's ``init_stacked_params`` or a trained bundle's
+``params``) across as tensors.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from .models import lm as _lm
 from .models.config import ModelConfig
 
 __all__ = ["ARRAY_FIELDS", "DICT_FIELDS", "aidg_from_numpy",
-           "lm_params_from_numpy", "cast_params"]
+           "lm_params_from_numpy", "cast_params", "SURROGATE_LEAVES",
+           "surrogate_params_from_numpy"]
 
 # field -> dtype of the port's AIDG
 ARRAY_FIELDS: Dict[str, type] = {
@@ -172,3 +175,41 @@ def cast_params(model: torch.nn.Module, dtype: torch.dtype
                     and p.dtype in (torch.float32, torch.bfloat16)):
                 p.data = p.data.to(dtype)
     return model
+
+
+# leaf -> its shape in (S cells, G groups, J paths, K knobs)
+SURROGATE_LEAVES: Dict[str, str] = {
+    "a": "SGJ", "w_raw": "SGJK", "tau_raw": "SG", "alpha_raw": "SK",
+    "beta_raw": "S", "gamma_raw": "S"}
+
+
+def surrogate_params_from_numpy(tree: Mapping[str, object],
+                                device: DeviceLike = None
+                                ) -> Dict[str, torch.Tensor]:
+    """A surrogate's stacked parameter dict (every leaf of
+    ``SURROGATE_LEAVES``, float32 array-likes with a leading cell axis, as
+    the reference's ``init_stacked_params`` gives them) -> float32 tensors
+    on ``device`` that the port's ``surrogate.model`` takes.  Missing or
+    extra leaves, other dtypes and inconsistent shapes raise."""
+    dev = resolve_device(device)
+    missing = [k for k in SURROGATE_LEAVES if k not in tree]
+    if missing:
+        raise KeyError(f"surrogate_params_from_numpy: missing leaves "
+                       f"{missing}")
+    extra = sorted(set(tree) - set(SURROGATE_LEAVES))
+    if extra:
+        raise ValueError(f"surrogate_params_from_numpy: unknown leaves "
+                         f"{extra}")
+    arrs = {k: np.asarray(tree[k]) for k in SURROGATE_LEAVES}
+    dims: Dict[str, int] = {}
+    for k, a in arrs.items():
+        axes = SURROGATE_LEAVES[k]
+        if a.dtype != np.float32:
+            raise ValueError(f"{k}: dtype {a.dtype}, expected float32")
+        if a.ndim != len(axes):
+            raise ValueError(f"{k}: shape {a.shape}, expected axes {axes}")
+        for ax, n in zip(axes, a.shape):
+            if dims.setdefault(ax, n) != n:
+                raise ValueError(f"{k}: axis {ax} is {n}, other leaves "
+                                 f"give {dims[ax]}")
+    return {k: torch.tensor(a, device=dev) for k, a in arrs.items()}

@@ -21,11 +21,11 @@ The whole matrix at once: ``PackedMatrix`` packs every unique
 evaluates all cells x all candidates together — rows and candidates are
 explicit batch dimensions, and each bucket's condensed levels and
 multi-slot queue steps are Python loops.  It is the Explorer's default
-engine.
+engine.  ``evaluate(sharded=True)`` splits the candidate axis over the
+local devices, each holding its own copy of the matrix's arrays.
 
 Not ported yet: the soft family and gradients (``grad_fn``/``grad3_fn``,
-ROADMAP.md queue A7) and the device-sharded evaluator (``sharded_fn``,
-queue A6).
+ROADMAP.md queue A7).
 """
 
 from __future__ import annotations
@@ -48,8 +48,6 @@ __all__ = ["DSEProblem", "make_problem", "evaluate_theta", "compiled_sweep",
 
 GRAD_TODO = ("the soft family and gradients are not ported yet (ROADMAP.md, "
              "queue A7)")
-SHARDED_TODO = ("the device-sharded packed evaluator is not ported yet "
-                "(ROADMAP.md, queue A6)")
 
 
 @dataclass
@@ -453,6 +451,37 @@ def _stage_row(prob: DSEProblem, proj, k_prologue: int) -> _PackedRow:
         queues=queues)
 
 
+def _cumsum_ordered(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum`` along ``dim`` that adds strictly in order, so a
+    candidate's sums do not depend on the batch it rides in.  CUDA scans
+    a tensor's last axis (and a tensor of one column) by trees whose shape
+    it picks from the number of rows; along a leading axis of several
+    columns it adds in order, one thread a column.  (On the CPU every
+    scan adds in order.)"""
+    y = x.movedim(dim, 0)
+    if y.numel() == y.shape[0]:          # one column: give it a second
+        return torch.cumsum(torch.stack([y, y], dim=-1),
+                            dim=0)[..., 0].movedim(0, dim)
+    return torch.cumsum(y, dim=0).movedim(0, dim)
+
+
+def _sum_ordered(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis in order (see ``_cumsum_ordered``):
+    CUDA's reductions pick their thread layout from the number of outputs
+    when the axis is longer than a warp, so ``sum`` could change a
+    candidate's result with its batch."""
+    return _cumsum_ordered(x, x.dim() - 1)[..., -1]
+
+
+def _device_key(device) -> torch.device:
+    """``device`` with its index filled in (``cuda`` -> ``cuda:<current>``),
+    so that one device has one cache entry."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _take(x: torch.Tensor, flat_idx: torch.Tensor, shape) -> torch.Tensor:
     """Gather along the flattened trailing axes of a (B, ...) tensor."""
     return x.reshape(x.shape[0], -1).index_select(1, flat_idx).view(
@@ -563,7 +592,7 @@ class _Bucket:
             o = torch.argsort(arr, dim=3, stable=True)
             arr_s, lat_s = arr.gather(3, o), lat.gather(3, o)
         if q["single"]:
-            S = torch.cumsum(lat_s, dim=3)
+            S = _cumsum_ordered(lat_s, 3)
             done_s = S + torch.cummax(arr_s - S + lat_s, dim=3).values
         else:
             free = q["free0"].expand(B, -1, -1, -1).clone()
@@ -596,7 +625,7 @@ class _Bucket:
             aw = torch.clamp_min(self.ab_fu * kn[:, self.ab_opk], 1.0) \
                 + self.ab_const
             tot0 = torch.cat([aw.new_zeros((B, R, 1)),
-                              torch.cumsum(aw, dim=2)], dim=2)
+                              _cumsum_ordered(aw, 2)], dim=2)
             prefix = tot0[:, :, 1:] - tot0.gather(
                 2, self.ab_seg.expand(B, -1, -1))
             gat = lambda ix: prefix.gather(
@@ -652,7 +681,7 @@ class PackedMatrix:
         self.n_knobs = n_knobs
         self.n_iters = n_iters
         self.device = device
-        self._arrays = None           # lazily-built device arrays
+        self._arrays: Dict[torch.device, dict] = {}   # device -> arrays
         self._buckets: Optional[List[List[int]]] = None
 
     # -- construction -------------------------------------------------------
@@ -859,12 +888,14 @@ class PackedMatrix:
             pidx=pidx, vc=vc, vp=vp, starts=starts, ab_fu=ab_fu,
             ab_opk=ab_opk, ab_const=ab_const, ab_seg=ab_seg, queues=groups)
 
-    def _build_arrays(self) -> dict:
-        """The buckets on the device, the bucket-to-global row order, and
-        the per-cell composition and energy arrays."""
-        if self._arrays is not None:
-            return self._arrays
-        dev = self.device
+    def _build_arrays(self, device: Optional[torch.device] = None) -> dict:
+        """The buckets on ``device`` (default: the matrix's), the
+        bucket-to-global row order, and the per-cell composition and energy
+        arrays; built once per device and cached."""
+        dev = _device_key(self.device if device is None else device)
+        hit = self._arrays.get(dev)
+        if hit is not None:
+            return hit
         buckets = self._bucketize()
         bucket_fns = [_Bucket(self._bucket_arrays(b), self.n_iters, dev)
                       for b in buckets]
@@ -899,23 +930,23 @@ class PackedMatrix:
 
         T = lambda x, dt: torch.as_tensor(x, dtype=dt, device=dev)
         F = torch.float32
-        self._arrays = dict(
+        self._arrays[dev] = dict(
             buckets=bucket_fns, inv=T(inv, torch.long), RU=RU,
             runs=T(runs, torch.long), reps=T(reps, F), fw=T(fw, F),
             fb=T(fb, F), edyn=T(edyn_c.astype(np.float32), F),
             pstat=T(pstat.astype(np.float32), F))
-        return self._arrays
+        return self._arrays[dev]
 
     # -- the evaluator ------------------------------------------------------
 
     def _matrix(self, knobs: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, K) knobs -> per-cell ``(cycles (B, S), energy (B, S))``:
-        every bucket's fixed point, bucket outputs re-ordered to global
-        rows, then the run-length composition per cell.  Energy rides the
-        same evaluation: the pre-folded ``(1/θ) @ edyn`` plus the static
-        term ``P_static · cycles``."""
-        A = self._build_arrays()
+        """(B, K) knobs -> per-cell ``(cycles (B, S), energy (B, S))`` on
+        the knobs' device: every bucket's fixed point, bucket outputs
+        re-ordered to global rows, then the run-length composition per
+        cell.  Energy rides the same evaluation: the pre-folded
+        ``(1/θ) @ edyn`` plus the static term ``P_static · cycles``."""
+        A = self._build_arrays(knobs.device)
         B = knobs.shape[0]
         kn = torch.cat([knobs, knobs.new_ones((B, 1))], dim=1)
         outs = [bucket(kn) for bucket in A["buckets"]]
@@ -923,18 +954,19 @@ class PackedMatrix:
         p = torch.cat([o[1] for o in outs], dim=1)[:, A["inv"]]
         runs, reps = A["runs"], A["reps"]
         mr, pr = m[:, runs], p[:, runs]                 # (B, S, RU)
-        total = (reps * mr).sum(dim=2)
-        within = ((reps - 1.0) * torch.minimum(pr, mr) * A["fw"]).sum(dim=2)
+        # sums in order, so a candidate's row does not depend on the batch
+        total = _sum_ordered(reps * mr)
+        within = _sum_ordered((reps - 1.0) * torch.minimum(pr, mr) * A["fw"])
         if A["RU"] > 1:
-            between = (torch.minimum(pr[:, :, 1:], mr[:, :, :-1])
-                       * A["fb"]).sum(dim=2)
+            between = _sum_ordered(torch.minimum(pr[:, :, 1:], mr[:, :, :-1])
+                                   * A["fb"])
         else:
             between = torch.zeros_like(total)
         cycles = total - within - between
         # DVFS-style dynamic term (faster units burn more pJ per op) plus
         # leakage over the makespan (an elementwise sum, not a matmul, so
         # no TF32 setting can touch it)
-        energy = ((1.0 / kn)[:, None, :] * A["edyn"]).sum(dim=2) \
+        energy = _sum_ordered((1.0 / kn)[:, None, :] * A["edyn"]) \
             + A["pstat"] * cycles
         return cycles, energy
 
@@ -944,19 +976,63 @@ class PackedMatrix:
         return lambda kt: self._matrix(kt)[0]
 
     def n_shards(self, n_devices: Optional[int] = None) -> int:
-        """Not ported yet (ROADMAP.md, queue A6)."""
-        raise NotImplementedError(SHARDED_TODO)
+        """Devices the sharded evaluator spreads the candidate axis over:
+        ``n_devices`` capped by what the matrix's device type offers
+        (``torch.cuda.device_count()`` for a matrix on ``cuda``, 1 on the
+        CPU), all of them when ``None``."""
+        avail = (torch.cuda.device_count() if self.device.type == "cuda"
+                 else 1)
+        if n_devices is None:
+            return avail
+        if not (1 <= n_devices <= avail):
+            raise ValueError(f"n_devices must be in [1, {avail}], "
+                             f"got {n_devices}")
+        return int(n_devices)
+
+    def _shard_devices(self, n: int) -> List[torch.device]:
+        """The first ``n`` devices of the matrix's device type."""
+        if self.device.type == "cuda":
+            return [torch.device("cuda", i) for i in range(n)]
+        return [self.device] * n
 
     def sharded_fn(self, n_devices: Optional[int] = None) -> Callable:
-        """Not ported yet (ROADMAP.md, queue A6)."""
-        raise NotImplementedError(SHARDED_TODO)
+        """The device-sharded evaluator: ``fn(knobs (B, K) tensor) ->
+        ((B, S) cycles, (B, S) energy)`` on the matrix's device, with the
+        CANDIDATE axis cut into ``n_shards`` equal slices, one per device.
+        Each device evaluates its slice with its own copy of the matrix's
+        arrays; rows are independent, so the result is bit for bit the
+        unsharded one.  B must be a multiple of the device count —
+        ``evaluate(sharded=True)`` pads for you."""
+        devices = self._shard_devices(self.n_shards(n_devices))
+        return lambda kt: self._split_matrix(kt, devices)
+
+    def _split_matrix(self, kt: torch.Tensor, devices: Sequence
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Cut ``kt`` (B, K) into ``len(devices)`` equal slices, evaluate
+        slice i on ``devices[i]`` and gather the slices in order onto the
+        matrix's device.  The device list is explicit so that one device
+        can stand in for several (the same device may appear many times):
+        that checks the split, not the devices."""
+        D = len(devices)
+        B = kt.shape[0]
+        if B % D:
+            raise ValueError(f"batch {B} is not a multiple of the "
+                             f"{D} devices")
+        home = self.device
+        outs = [self._matrix(part.to(dev))
+                for part, dev in zip(torch.split(kt, B // D), devices)]
+        return (torch.cat([c.to(home) for c, _ in outs]),
+                torch.cat([e.to(home) for _, e in outs]))
 
     def evaluate(self, knob_thetas: np.ndarray,
                  chunk: Optional[int] = None, sharded: bool = False,
                  n_devices: Optional[int] = None) -> np.ndarray:
         """(B, n_knobs) candidates -> (B, S) estimated cycles.  ``chunk``
         bounds peak memory (each candidate's row is independent of the
-        others, so chunks need no padding)."""
+        others, so chunks need no padding).  ``sharded`` splits the
+        candidate axis over ``n_devices`` devices (``sharded_fn``) with
+        bit-for-bit the same result; the batch is padded with θ = 1 rows
+        up to a device multiple and sliced back."""
         return self.evaluate_full(knob_thetas, chunk=chunk, sharded=sharded,
                                   n_devices=n_devices)[0]
 
@@ -966,20 +1042,40 @@ class PackedMatrix:
                       ) -> Tuple[np.ndarray, np.ndarray]:
         """(B, n_knobs) candidates -> ``((B, S) cycles, (B, S) energy
         pJ)``, both from the same evaluation; cells built without energy
-        coefficients report 0.  ``sharded`` raises (queue A6)."""
-        if sharded:
-            raise NotImplementedError(SHARDED_TODO)
+        coefficients report 0.  Options as :meth:`evaluate`."""
+        devices = (self._shard_devices(self.n_shards(n_devices)) if sharded
+                   else None)
+        return self._evaluate_split(knob_thetas, chunk, devices)
+
+    def _evaluate_split(self, knob_thetas: np.ndarray, chunk: Optional[int],
+                        devices: Optional[Sequence]
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """``evaluate_full`` over ``chunk``-row blocks.  With an explicit
+        ``devices`` list (``[cpu] * 3`` in the tests, ``[cuda:0] * 4`` on
+        one card) each block is padded with θ = 1 rows to a multiple of
+        its length, split over them (``_split_matrix``) and the padding
+        sliced off; ``None`` evaluates each block whole on the matrix's
+        device."""
         kt = torch.as_tensor(np.atleast_2d(np.asarray(knob_thetas,
                                                       np.float32)),
                              device=self.device)
         B = kt.shape[0]
-        step = B if chunk is None else max(1, int(chunk))
+        mult = 1 if devices is None else len(devices)
+        up = lambda n: -(-n // mult) * mult   # round up to a device multiple
+        step = B if chunk is None else up(max(1, int(chunk)))
         cyc, en = [], []
         with torch.inference_mode():
             for s in range(0, B, step):
-                c, e = self._matrix(kt[s:s + step])
-                cyc.append(c.cpu().numpy())
-                en.append(e.cpu().numpy())
+                block = kt[s:s + step]
+                n = block.shape[0]
+                if devices is None:
+                    c, e = self._matrix(block)
+                else:
+                    pad = block.new_ones((up(n) - n, kt.shape[1]))
+                    c, e = self._split_matrix(torch.cat([block, pad]),
+                                              devices)
+                cyc.append(c[:n].cpu().numpy())
+                en.append(e[:n].cpu().numpy())
         return np.concatenate(cyc), np.concatenate(en)
 
     def export_training_table(self, knob_thetas: np.ndarray,

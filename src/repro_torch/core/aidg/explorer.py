@@ -702,7 +702,8 @@ class Explorer:
                  n_devices: Optional[int] = None) -> np.ndarray:
         """(B, n_knobs) candidates -> (B, S) estimated cycles: the packed
         matrix, or one batched sweep per cell for the per-cell engines.
-        ``sharded`` (several devices) is not ported yet."""
+        ``sharded`` splits the candidate axis over the local devices
+        (packed engine only; bit for bit the unsharded result)."""
         kt = np.asarray(knob_thetas, np.float32)
         if kt.ndim == 1:
             kt = kt[None, :]

@@ -17,7 +17,10 @@ JAX reference package.
 (f) the packed slice: the copied ``core/network`` tables and layer graphs
     equal the reference's, and every operator and network cell's
     CompiledAIDG / CondensedAIDG (with its prologue boundary) and layer
-    stack are array-equal to the reference's.
+    stack are array-equal to the reference's;
+(g) the serving slice: the six framework-free ``serve`` modules are the
+    reference's files, byte for byte, and ``serve``, ``surrogate`` and
+    ``optim`` run with neither ``jax`` nor ``repro`` loaded.
 """
 
 import ast
@@ -42,7 +45,8 @@ from repro.core.network import lowering as ref_lowering
 from repro.models import get_model as ref_get_model
 import repro_torch.core.network as port_net
 from repro_torch.convert import (ARRAY_FIELDS, DICT_FIELDS, aidg_from_numpy,
-                                 cast_params, lm_params_from_numpy)
+                                 cast_params, lm_params_from_numpy,
+                                 surrogate_params_from_numpy)
 from repro_torch.core.aidg import builder as port_builder
 from repro_torch.core.aidg import dse as port_dse
 from repro_torch.core.aidg import explorer as port_ex
@@ -50,6 +54,7 @@ from repro_torch.core.aidg import maxplus as port_mp
 from repro_torch.core.network import lowering as port_lowering
 from repro_torch.models import get_model as port_get_model
 from repro_torch.models import lm as port_lm
+from repro_torch.serve import DSEService
 
 ROOT = Path(__file__).resolve().parents[1]
 REF_SCEN = ref_ex.default_scenarios()
@@ -182,6 +187,8 @@ def test_port_files_import_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
+    scanned = {f.parent.name for f in files}
+    assert {"serve", "surrogate", "optim"} <= scanned, scanned
     bad = {str(f.relative_to(ROOT)): m for f in files
            for m in _imported_modules(f) if _forbidden(m)}
     assert not bad, bad
@@ -218,6 +225,10 @@ def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch):
     cs = port_ex.compile_scenario(PORT_SCEN[6])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_ex.Explorer(PORT_SCEN[6:7], engine="blocked")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DSEService(scenarios=PORT_SCEN[6:7])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        surrogate_params_from_numpy({})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_dse.sweep(cs.problem, np.ones((1, cs.problem.n_op)),
                        np.ones((1, cs.problem.n_st)))
@@ -450,3 +461,41 @@ def test_network_cell_arrays_match_reference(i):
         _assert_same_array(getattr(rp, k), getattr(pp, k), k)
     assert all(np.array_equal(a, b) for a, b in zip(rp.edyn, pp.edyn))
     assert rp.static_pj == pp.static_pj
+
+
+# ---------------------------------------------------------------------------
+# (g) the serving slice
+# ---------------------------------------------------------------------------
+
+SERVE_COPIES = ("errors", "query", "policy", "faults", "batcher", "frontend")
+
+
+@pytest.mark.parametrize("name", SERVE_COPIES)
+def test_serve_copies_equal_reference(name):
+    ref = ROOT / "src" / "repro" / "serve" / f"{name}.py"
+    port = ROOT / "src" / "repro_torch" / "serve" / f"{name}.py"
+    assert port.read_bytes() == ref.read_bytes()
+
+
+def test_serve_and_surrogate_run_without_jax_or_repro_loaded():
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import repro_torch.core.aidg.explorer as E\n"
+        "from repro_torch.serve import DSEService\n"
+        "from repro_torch.surrogate import SurrogateConfig, train_surrogate\n"
+        "from repro_torch.optim import AdamWConfig\n"
+        "ex = E.Explorer(E.default_scenarios()[:2], device='cpu')\n"
+        "b = train_surrogate(ex, SurrogateConfig(n_samples=16, steps=20))\n"
+        "with DSEService(ex, pool=4, surrogate=b, surrogate_max_err=1e9) \\\n"
+        "        as svc:\n"
+        "    assert svc.query(workload='gemm').tier == 'surrogate'\n"
+        "    assert svc.query(workload='gemm', archs=['oma'],\n"
+        "                     top_k=1).cells == ('oma/gemm',)\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout

@@ -712,3 +712,48 @@ def test_packed_explorer_on_card_matches_golden(card):
     gpu = ex.evaluate(cand)
     cpu = port_ex.Explorer(device="cpu").evaluate(cand)
     np.testing.assert_allclose(gpu, cpu, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B", [8, 13])
+def test_sharded_split_on_card_is_bit_for_bit(card, B):
+    """The sharded evaluator's split, with one card standing in for four:
+    padded to a multiple of 4, cut into 4 slices, gathered in order — bit
+    for bit the unsharded evaluation, with and without ``chunk``."""
+    ex = port_ex.Explorer(port_ex.default_scenarios()[:4], device=card)
+    pm = ex.packed_matrix()
+    cand = port_ex.random_candidates(port_ex.DEFAULT_SPACE, B, seed=5)
+    cycles, energy = pm.evaluate_full(cand)
+    for chunk in (None, 5):
+        c, e = pm._evaluate_split(cand, chunk, [card] * 4)
+        assert np.array_equal(c, cycles) and np.array_equal(e, energy)
+    assert pm.n_shards() == torch.cuda.device_count()
+    c, e = pm.evaluate_full(cand, sharded=True)
+    assert np.array_equal(c, cycles) and np.array_equal(e, energy)
+
+
+def test_small_service_answers_on_card(card):
+    """A 2-cell DSEService on the card: packed answers equal to the CPU
+    service's designs, a surrogate trained on the card routes queries, and
+    the sharded service answers as the unsharded one."""
+    from repro_torch.serve import DSEService, Query
+    from repro_torch.surrogate import SurrogateConfig, train_surrogate
+
+    scs = port_ex.default_scenarios()[:2]
+    q = Query.make(workload="gemm", top_k=3)
+    with DSEService(scenarios=scs, pool=16, seed=1, device=card) as svc, \
+            DSEService(scenarios=scs, pool=16, seed=1, sharded=True,
+                       device=card) as shard, \
+            DSEService(scenarios=scs, pool=16, seed=1, device="cpu") as cpu:
+        a, b = svc.query(q), cpu.query(q)
+        assert svc.explorer.device.type == "cuda"
+        assert a.tier == "packed" and a.cells == b.cells
+        assert [d.theta for d in a.designs] == [d.theta for d in b.designs]
+        np.testing.assert_allclose([d.latency for d in a.designs],
+                                   [d.latency for d in b.designs],
+                                   rtol=1e-5)
+        assert shard.query(q) == a
+        bundle = train_surrogate(svc.explorer,
+                                 SurrogateConfig(n_samples=48, steps=250))
+    with DSEService(svc.explorer, pool=16, seed=1, surrogate=bundle,
+                    surrogate_max_err=10.0) as fast:
+        assert fast.query(q).tier == "surrogate"

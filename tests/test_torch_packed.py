@@ -245,11 +245,9 @@ def test_pack_spec_and_dedup():
 
 def test_unported_packed_paths_raise(port_packed):
     pm = port_packed.packed_matrix()
-    for call in (lambda: pm.sharded_fn(), lambda: pm.n_shards(),
-                 lambda: pm.grad_fn(port_packed.baselines),
+    for call in (lambda: pm.grad_fn(port_packed.baselines),
                  lambda: pm.grad3_fn(port_packed.baselines,
                                      port_packed.energy_baselines),
-                 lambda: port_packed.evaluate(np.ones((1, 5)), sharded=True),
                  lambda: port_packed.refine(method="grad")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
