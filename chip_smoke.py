@@ -130,6 +130,30 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    those before; (d) ``n_shards()`` against ``torch.cuda.device_count()``,
    ``evaluate_full(sharded=True)`` and the split forced over four slices
    of the card, bit for bit the unsharded evaluation;
+12. the gradient search (the τ-soft family, autograd on the card) with
+   the kernels' counters zeroed just before and read just after (no
+   kernel and no plain version may run): (a) the reference's acceptance
+   gate on the 10-cell ``Explorer()`` -- ``GradientExplorer(ex).refine()``
+   at its defaults (2 starts x 22 steps + 2 = 46 evaluations) scores <=
+   the coordinate-descent incumbent (100 evaluations) x 1.001, in the
+   knob box, its score the hard evaluator's; (b) ``GradientExplorer`` over
+   phase 10's 31-cell Explorer, objective ``product`` at
+   ``GRAD_PRODUCT_STEPS`` steps and ``edp`` (through ``grad3_fn``) at
+   ``GRAD_EDP_STEPS`` (both cut from the default 22 to fit the phase's
+   time), each step's forward and backward seconds, τ and ``obj_min``
+   printed, one step profiled (device idle share) and its peak memory;
+   (c) central differences (τ 0.2, step 1e-2, every knob) against
+   ``PackedMatrix.grad_fn`` on 31 cells and one network cell's
+   ``CompiledNetwork.grad_fn`` within 5% (plus the differences' own
+   float32 resolution, ``FD_ULPS``), every gradient and Jacobian entry
+   finite at τ = 0.01, packed against the per-cell (wavefront) gradient
+   on 10 cells (rel 2e-2; rtol 0.2, atol 5e-2); (d) the soft packed
+   latency at τ = 0.01 and θ = 1 within 5e-3 of the hard one on every
+   cell, and not below it (- 1e-3) on the sequential cells; (e) whether
+   two identical gradient evaluations (31 cells) and two identical short
+   refines (10 cells) are bit-equal (if not, the same under
+   ``torch.use_deterministic_algorithms(True)``), the incumbents held to
+   ``DETERMINISM_RTOL``;
 
 each phase's time, then one ``{"kernels": [...]}`` line, the card line
 again, and as the last line ``{"ok": true, "device": {...}}``.  It needs
@@ -144,6 +168,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
@@ -205,6 +230,29 @@ INELIGIBLE_MAX = 0.30  # share of cells over the default routing bound
 # the sharded evaluator's split, one card standing in for four
 SHARD_SLICES = 4
 SHARD_BATCH = 1003     # not a multiple of 4: the split pads
+
+# -- the gradient search (tests/test_gradient_dse.py's gates) ---------------
+GRAD_GATE = 1.001      # gradient incumbent <= coordinate descent x this
+# refine steps on 31 cells, cut from the default 22 to keep phase 12 near
+# its ~180 s: a step there takes ~4.6 s (product) and ~8 s (edp: two
+# backward passes)
+GRAD_PRODUCT_STEPS = 10
+GRAD_EDP_STEPS = 3
+GRAD_FD_TAU = 0.2      # finite differences: τ, step and the 5% gate
+GRAD_FD_EPS = 1e-2
+GRAD_FD_GATE = 5e-2
+# a central difference of two float32 values resolves no less than
+# FD_ULPS ulps of the value over 2·step (whole-network cycles run to 1e7+,
+# where an ulp is 1 cycle and a knob's derivative can be a few hundred)
+FD_ULPS = 8
+SOFT_TAU = 0.01        # soft vs hard: τ, relative gap, the sequential floor
+SOFT_HARD_REL = 5e-3
+SOFT_FLOOR = 1e-3
+# two identical refines on the card: atomics in the backward of the
+# gathers (index_add_, scatter_add_) may reorder float32 sums; Adam moves
+# each knob by at most lr a step, so a reordered sum can move an incumbent
+# only where a gradient is near zero — held to this relative difference
+DETERMINISM_RTOL = 1e-2
 
 # θ = 1 cycles of the 10 default cells, pinned in the reference's tests
 GOLDEN_THETA1_CYCLES = {
@@ -291,16 +339,20 @@ def rate(cells: int, secs) -> float:
     return cells * N_CAND / float(np.median(secs))
 
 
-def profile_call(fn, label: str, watch=()) -> None:
+def profile_call(fn, label: str, watch=(), cpu: bool = True) -> None:
     """One call of ``fn`` under ``torch.profiler``: device time by kernel
     and the share of the host-clock span the device was busy, and the
     summed device time of the kernels whose names hold each string of
     ``watch``.  Prints "not measured" when the profiler records no device
-    time."""
+    time.  ``cpu=False`` records the device's activity only (a call of
+    ~10⁶ operator events costs minutes of the profiler's own work with
+    the host's)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1694,6 +1746,299 @@ def serve_phase(ex, modules):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the gradient search over the packed Explorer
+# ---------------------------------------------------------------------------
+
+
+def lap_clock():
+    """``lap(label)`` prints the seconds since the previous lap."""
+    last = [time.perf_counter()]
+
+    def lap(label: str) -> None:
+        now = time.perf_counter()
+        print(f"   ({label}: {now - last[0]:.1f} s)", flush=True)
+        last[0] = now
+
+    return lap
+
+
+class StepClock:
+    """Times each value-and-gradient evaluation of the gradient search on
+    the card, forward and backward apart: wraps ``dse._rows_value_and_grad``
+    (every gradient function of the port goes through it) while active."""
+
+    def __init__(self):
+        from repro_torch.core.aidg import dse
+        self.dse, self.orig = dse, dse._rows_value_and_grad
+        self.steps = []           # (forward s, backward s) per evaluation
+
+    def __enter__(self):
+        def timed(f, knobs, device):
+            fwd = []
+
+            def f_timed(k):
+                t = time.perf_counter()
+                v = f(k)
+                torch.cuda.synchronize()
+                fwd.append(time.perf_counter() - t)
+                return v
+
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = self.orig(f_timed, knobs, device)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t
+            self.steps.append((fwd[0], total - fwd[0]))
+            return out
+
+        self.dse._rows_value_and_grad = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.dse._rows_value_and_grad = self.orig
+
+
+def print_refine(label: str, out, clock: StepClock, secs: float) -> None:
+    """A refine's steps (τ, forward and backward s, obj_min) and total."""
+    for h, (fw, bw) in zip(out.history, clock.steps):
+        print(f"  {label} step {h['step']:2d}: tau {h['tau']:.4f} forward "
+              f"{fw:.3f} s backward {bw:.3f} s obj_min {h['obj_min']:.6f}",
+              flush=True)
+    fw = [f for f, _ in clock.steps]
+    bw = [b for _, b in clock.steps]
+    print(f"{label}: {len(out.history)} steps in {secs:.2f} s (median "
+          f"forward {float(np.median(fw)):.3f} s, backward "
+          f"{float(np.median(bw)):.3f} s), {out.evaluations} evaluations, "
+          f"score {out.score:.6f}, theta {np.round(out.theta, 4).tolist()}",
+          flush=True)
+
+
+def central_differences(fn, k0: np.ndarray) -> tuple:
+    """(gradient at k0 (K,), central differences (K,), their float32
+    resolution) of ``fn(knobs, tau)`` at ``GRAD_FD_TAU``, from one call
+    over k0 and its 2K steps."""
+    K_ = k0.shape[1]
+    rows = np.repeat(k0, 2 * K_ + 1, axis=0)
+    rows[1 + np.arange(0, 2 * K_, 2), np.arange(K_)] += GRAD_FD_EPS
+    rows[2 + np.arange(0, 2 * K_, 2), np.arange(K_)] -= GRAD_FD_EPS
+    v, g = fn(rows, GRAD_FD_TAU)
+    v = v.cpu().numpy().astype(np.float64)
+    steps = (rows[1::2] - rows[2::2])[np.arange(K_), np.arange(K_)]
+    ulp = float(np.spacing(np.float32(np.abs(v).max())))
+    return (g[0].cpu().numpy().astype(np.float64),
+            (v[1::2] - v[2::2]) / steps.astype(np.float64),
+            FD_ULPS * ulp / (2 * GRAD_FD_EPS))
+
+
+def check_fd(label: str, g: np.ndarray, fd: np.ndarray,
+             resolution: float) -> None:
+    gap = np.abs(fd - g)
+    limit = GRAD_FD_GATE * np.maximum(1.0, np.abs(fd)) + resolution
+    check(bool(np.all(gap <= limit)),
+          f"{label}: gradient {g} vs central differences {fd} (limit "
+          f"{limit})")
+    print(f"{label}: gradient {np.round(g, 5).tolist()} vs central "
+          f"differences {np.round(fd, 5).tolist()}, max rel. gap "
+          f"{float((gap / np.maximum(1.0, np.abs(fd))).max()):.2e} (gate "
+          f"{GRAD_FD_GATE} + the differences' resolution {resolution:.3g})",
+          flush=True)
+
+
+def grad_gate(dev):
+    """12 (a): the reference's acceptance gate on the 10-cell Explorer."""
+    from repro_torch.core.aidg.explorer import Explorer
+    from repro_torch.core.aidg.gradient import GradientExplorer
+    ex = Explorer(device=dev)
+    t = time.perf_counter()
+    cd = ex.refine()
+    cd_s = time.perf_counter() - t
+    res = ex.explore(cd[None, :])
+    cd_score = float(res.latency[0] * res.cost[0])
+    cd_evals = (9 + 1) * ex.space.n * 2
+    with StepClock() as clock:
+        t = time.perf_counter()
+        out = GradientExplorer(ex).refine()
+        gr_s = time.perf_counter() - t
+    print_refine("gradient refine, 10 cells", out, clock, gr_s)
+    check(out.evaluations == 46 and out.evaluations * 2 <= cd_evals,
+          f"evaluations {out.evaluations} vs {cd_evals}")
+    check(out.score <= cd_score * GRAD_GATE,
+          f"gradient score {out.score} > coordinate descent {cd_score} x "
+          f"{GRAD_GATE}")
+    check(np.array_equal(ex.space.clip(out.theta), out.theta),
+          f"incumbent {out.theta} outside the knob box")
+    re = ex.explore(out.theta[None, :])
+    again = float(re.latency[0] * re.cost[0])
+    check(abs(again - out.score) <= 1e-6 * out.score,
+          f"re-scored {again} != {out.score}")
+    print(f"gate, 10 cells: gradient {out.score:.6f} ({out.evaluations} "
+          f"evaluations, {gr_s:.2f} s) <= coordinate descent "
+          f"{cd_score:.6f} ({cd_evals} evaluations, {cd_s:.2f} s) x "
+          f"{GRAD_GATE}; in the box, re-scored equal (the reference's "
+          f"TPU-era CPU row, for contrast only: 2.5714 at 46 against "
+          f"2.5849 at 100, BENCH_dse.json dse/gradient)", flush=True)
+    return ex
+
+
+def grad_matrix(ex, dev):
+    """12 (b): the gradient search over the 31-cell matrix."""
+    from repro_torch.core.aidg.gradient import GradientExplorer
+    from repro_torch.core.aidg.maxplus import _as_tau
+    for objective, steps in (("product", GRAD_PRODUCT_STEPS),
+                             ("edp", GRAD_EDP_STEPS)):
+        ge = GradientExplorer(ex, objective=objective)
+        with StepClock() as clock:
+            t = time.perf_counter()
+            out = ge.refine(steps=steps)
+            secs = time.perf_counter() - t
+        print_refine(f"gradient refine, {len(ex.compiled)} cells, "
+                     f"{objective}", out, clock, secs)
+        base = float(ge.hard_score(np.ones((1, ex.space.n),
+                                           np.float32))[0])
+        check(np.isfinite(out.score) and out.score <= base * (1 + 1e-6),
+              f"{objective}: incumbent {out.score} worse than θ = 1 "
+              f"{base}")
+    lap = lap_clock()
+    pm = ex.packed_matrix()
+    fn = pm.grad_fn(ex.baselines)
+    k = np.ones((2, ex.space.n), np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fn(k, 0.05)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"one gradient step (2 candidates, {len(ex.compiled)} cells): "
+          f"peak device memory {(peak - held) / 2**30:.3f} GiB above the "
+          f"{held / 2**30:.3f} GiB held before it", flush=True)
+    lap("one step for its peak memory")
+    profile_call(lambda: fn(k, 0.05), "one gradient step, 31 cells",
+                 cpu=False)
+    lap("the profiled step, with the profiler's own work")
+    with torch.no_grad():
+        soft = pm._matrix(torch.ones((1, ex.space.n), device=dev),
+                          _as_tau(SOFT_TAU, dev))[0][0].cpu().numpy()
+    return soft
+
+
+def grad_checks(ex, ex10, soft, dev):
+    """12 (c)-(e): gradients against differences, finiteness, packed
+    against per-cell, soft against hard, determinism."""
+    from repro_torch.core.aidg.explorer import Explorer
+    from repro_torch.core.aidg.gradient import GradientExplorer
+    lap = lap_clock()
+    pm = ex.packed_matrix()
+    S, K_ = len(ex.compiled), ex.space.n
+    k0 = np.asarray([[0.8, 1.2, 0.9, 1.1, 1.0]], np.float32)
+    check_fd(f"packed grad_fn, {S} cells",
+             *central_differences(pm.grad_fn(ex.baselines), k0))
+    lap("packed differences")
+    # one network cell (tpu_v5e's: its tile programs have the fewest
+    # levels) through the stacked per-layer soft family
+    ni = next(i for i, cs in enumerate(ex.compiled)
+              if i >= len(GOLDEN_THETA1_CYCLES) and cs.arch == "tpu_v5e")
+    net = ex.compiled[ni]
+    check_fd(f"CompiledNetwork.grad_fn, {net.name}",
+             *central_differences(net.grad_fn(ex._projections[ni],
+                                              device=dev), k0))
+    lap("network cell differences")
+    k = np.ones((2, K_), np.float32)
+    k[1] = k0[0]
+    _, g = pm.grad_fn(ex.baselines)(k, SOFT_TAU)
+    _, j = pm.grad3_fn(ex.baselines, ex.energy_baselines)(k, SOFT_TAU)
+    check(bool(torch.isfinite(g).all() and torch.isfinite(j).all()),
+          f"gradients at τ = {SOFT_TAU} not finite")
+    print(f"τ = {SOFT_TAU}: grad_fn and grad3_fn finite on {S} cells "
+          f"({g.numel() + j.numel()} entries)", flush=True)
+    lap("finite at small τ")
+    wf = Explorer(engine="wavefront", device=dev)
+    kp = np.asarray([[0.9, 1.1, 1.0, 1.2, 0.8]], np.float32)
+    vp, dp = GradientExplorer(ex10).value_and_grad(kp, 0.05)
+    vc, dc = GradientExplorer(wf).value_and_grad(kp, 0.05)
+    rel = abs(vp[0] - vc[0]) / abs(vc[0])
+    check(rel <= 2e-2 and np.allclose(dp, dc, rtol=0.2, atol=5e-2),
+          f"packed {vp, dp} vs per-cell {vc, dc}")
+    print(f"packed vs per-cell (wavefront) value_and_grad, 10 cells, τ "
+          f"0.05: value rel. gap {rel:.2e} (limit 2e-2), gradient max abs "
+          f"gap {float(np.abs(dp - dc).max()):.2e} (rtol 0.2, atol 5e-2)",
+          flush=True)
+    lap("packed vs per-cell")
+    # (d) soft against hard at θ = 1
+    hard = np.asarray(ex.baselines, np.float64)
+    gap = (soft - hard) / hard
+    seq = np.asarray([getattr(cs.scenario, "mode", "sequential")
+                      == "sequential" for cs in ex.compiled])
+    check(bool(np.all(np.abs(gap) <= SOFT_HARD_REL)),
+          f"soft vs hard at τ = {SOFT_TAU}: {gap}")
+    check(bool(np.all(gap[seq] >= -SOFT_FLOOR)),
+          f"soft below hard on a sequential cell: {gap[seq]}")
+    print(f"soft vs hard, τ = {SOFT_TAU}, θ = 1: relative gap per cell "
+          f"{[f'{x:.1e}' for x in gap]} (limit {SOFT_HARD_REL}; "
+          f"{int(seq.sum())} sequential cells >= -{SOFT_FLOOR})", flush=True)
+    # (e) determinism
+    fn = pm.grad_fn(ex.baselines)
+    a, b = fn(k, 0.05), fn(k, 0.05)
+    same_v = torch.equal(a[0], b[0])
+    same_g = torch.equal(a[1], b[1])
+    print(f"two identical gradient evaluations: values bit-equal {same_v}, "
+          f"gradients bit-equal {same_g} (max gap "
+          f"{float((a[1] - b[1]).abs().max()):.3e})", flush=True)
+    if not same_g:
+        # the same under deterministic algorithms; ops that have none warn
+        # (warn_only) and are named
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                a, b = fn(k, 0.05), fn(k, 0.05)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        named = sorted({str(w.message).split(" does not have")[0]
+                        for w in caught})
+        print(f"  under torch.use_deterministic_algorithms(True): gradients "
+              f"bit-equal {torch.equal(a[1], b[1])}; operations without a "
+              f"deterministic implementation: {named or 'none'}",
+              flush=True)
+    ge = GradientExplorer(ex10)
+    r1 = ge.refine(starts=2, steps=3, seed=5)
+    r2 = ge.refine(starts=2, steps=3, seed=5)
+    same = (np.array_equal(r1.final_thetas, r2.final_thetas)
+            and r1.history == r2.history)
+    gap = float(np.max(np.abs(r1.final_thetas - r2.final_thetas)
+                       / r2.final_thetas))
+    check(gap <= DETERMINISM_RTOL
+          and abs(r1.score - r2.score) <= DETERMINISM_RTOL * r2.score,
+          f"two identical refines differ: {r1.final_thetas} vs "
+          f"{r2.final_thetas}")
+    print(f"two identical refines (2 starts, 3 steps, 10 cells): "
+          f"bit-equal {same}; incumbent thetas max rel. gap {gap:.3e}, "
+          f"scores {r1.score:.9f} / {r2.score:.9f} (limit "
+          f"{DETERMINISM_RTOL})", flush=True)
+    lap("determinism")
+
+
+def grad_phase(ex, modules, dev):
+    """Phase 12: the gradient search on the card over phase 10's Explorer
+    (and the 10-cell one), the kernels' counters zeroed just before and
+    read just after — no kernel and no plain version may run."""
+    for mod in modules:
+        mod.reset_counts()
+    lap = lap_clock()
+    ex10 = grad_gate(dev)
+    lap("(a) the gate")
+    soft = grad_matrix(ex, dev)
+    lap("(b) the 31-cell refines, profile and memory")
+    grad_checks(ex, ex10, soft, dev)
+    counts = {f"{kind}{k}": v for mod in modules
+              for kind, d in (("", mod.LAUNCHES), ("plain ", mod.PLAIN_CALLS))
+              for k, v in d.items()}
+    check(sum(counts.values()) == 0, f"kernels or plain versions ran on "
+                                     f"the gradient path: {counts}")
+    print(f"gradient search: kernel launches and plain calls across phase "
+          f"12 {counts}", flush=True)
+
+
 # what a kernel's row may carry beside the contract's keys (the chosen
 # kernel of the GEMM, flash attention and the scan, the scan's plan, device
 # times, the mma.sync kernels' and the PR 12 scan kernel's times, every
@@ -1880,10 +2225,14 @@ def main() -> int:
 
     # -- 11. the DSE query service over it -----------------------------------
     serve_phase(ex, (K, FA, SS, SG))
+    phase_done("11 (serve)")
+
+    # -- 12. the gradient search over it -------------------------------------
+    grad_phase(ex, (K, FA, SS, SG), dev)
     del ex
     gc.collect()
     torch.cuda.empty_cache()
-    phase_done("11 (serve)")
+    phase_done("12 (gradient search)")
 
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[name],

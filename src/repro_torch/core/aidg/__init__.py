@@ -1,7 +1,8 @@
 """AIDG: Architectural Instruction Dependency Graph fast estimation —
 numpy exact path (``builder``, copied from the reference), PyTorch
-max-plus engines (``maxplus``), DSE sweeps, network stacks and the packed
-matrix (``dse``) and the Explorer."""
+max-plus engines and their τ-soft family (``maxplus``), DSE sweeps,
+network stacks, the packed matrix and their gradients (``dse``), the
+Explorer and the gradient search (``gradient``)."""
 
 from .builder import (
     AIDG,
@@ -20,17 +21,23 @@ from .maxplus import (
     DEFAULT_ENGINE,
     ENGINES,
     fixed_point_batch,
+    fixed_point_soft,
     fixed_point_torch,
     longest_path_blocked,
     longest_path_condensed,
     longest_path_scan,
+    longest_path_soft,
     longest_path_wavefront,
     maxplus_closure,
     maxplus_matmul_torch,
     slot_queue_scan,
+    slot_queue_soft,
+    softmax_reduce,
+    softmaximum,
 )
 from .dse import (DSEProblem, PackedMatrix, compiled_sweep, evaluate_theta,
-                  make_problem, sweep)
+                  evaluate_theta_soft, grad_sweep, make_problem, sweep)
+from .gradient import GradientExplorer, GradientResult
 from .explorer import (
     DEFAULT_SPACE,
     CompiledScenario,
@@ -53,10 +60,13 @@ __all__ = [
     "estimate_cycles", "longest_path", "longest_path_fixed_point",
     "ENGINES", "DEFAULT_ENGINE",
     "longest_path_wavefront", "longest_path_scan", "longest_path_blocked",
-    "longest_path_condensed", "fixed_point_torch", "fixed_point_batch",
-    "maxplus_closure", "maxplus_matmul_torch", "slot_queue_scan",
+    "longest_path_condensed", "longest_path_soft", "fixed_point_torch",
+    "fixed_point_batch", "fixed_point_soft", "maxplus_closure",
+    "maxplus_matmul_torch",
+    "slot_queue_scan", "slot_queue_soft", "softmaximum", "softmax_reduce",
     "DSEProblem", "PackedMatrix", "make_problem", "evaluate_theta",
-    "compiled_sweep", "sweep",
+    "evaluate_theta_soft", "grad_sweep", "compiled_sweep", "sweep",
+    "GradientExplorer", "GradientResult",
     "Scenario", "CompiledScenario", "default_scenarios", "compile_scenario",
     "clear_scenario_cache", "Knob", "DesignSpace", "DEFAULT_SPACE",
     "grid_candidates", "random_candidates", "pareto_front",

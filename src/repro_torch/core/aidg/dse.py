@@ -24,8 +24,16 @@ multi-slot queue steps are Python loops.  It is the Explorer's default
 engine.  ``evaluate(sharded=True)`` splits the candidate axis over the
 local devices, each holding its own copy of the matrix's arrays.
 
-Not ported yet: the soft family and gradients (``grad_fn``/``grad3_fn``,
-ROADMAP.md queue A7).
+The makespan is also *differentiable in θ*: ``evaluate_theta_soft`` swaps
+the hard max-plus family for the temperature-τ smooth one
+(``maxplus.fixed_point_soft``), and ``grad_sweep`` / ``grad_network_sweep``
+/ ``PackedMatrix.grad_fn`` / ``grad3_fn`` return cached functions mapping a
+batch of *shared knob vectors* straight to (soft objective, d objective /
+d knob) — the ``DesignSpace.projection`` gather is inside the
+differentiated function, so gradients land on the few shared knobs.
+Autograd takes ``jax.grad``'s place: one backward pass over the batch
+gives every candidate row its own gradient (rows never mix).
+``core.aidg.gradient`` builds projected Adam on top of this.
 """
 
 from __future__ import annotations
@@ -39,15 +47,14 @@ import torch
 from ...device import resolve_device
 from .builder import (AIDG, CompiledAIDG, CondensedAIDG, compile_aidg,
                       condense_aidg)
-from .maxplus import (DEFAULT_ENGINE, NEG, Solver, _fixed_point_core,
-                      affine_scan)
+from .maxplus import (DEFAULT_ENGINE, NEG, Solver, _as_tau,
+                      _fixed_point_core, affine_scan, softmax_reduce,
+                      softmaximum)
 
 __all__ = ["DSEProblem", "make_problem", "evaluate_theta", "compiled_sweep",
-           "sweep", "LayerStack", "NETWORK_MODES", "compiled_network_sweep",
+           "sweep", "evaluate_theta_soft", "grad_sweep", "LayerStack",
+           "NETWORK_MODES", "compiled_network_sweep", "grad_network_sweep",
            "PackSpec", "PackedMatrix"]
-
-GRAD_TODO = ("the soft family and gradients are not ported yet (ROADMAP.md, "
-             "queue A7)")
 
 
 @dataclass
@@ -115,11 +122,15 @@ class _Reweight:
 
 
 def _reweight(prob: DSEProblem, theta_op: torch.Tensor,
-              theta_st: torch.Tensor, arrays: Optional[_Reweight] = None
+              theta_st: torch.Tensor, arrays: Optional[_Reweight] = None,
+              tau=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
     """θ (B, n_op), (B, n_st) -> ((B, n) per-node work, {storage: (B, k)}
     scaled storage latencies, (B, n) scaled fu latencies), with the
-    1-cycle occupancy floor ``max(1, fu + mem)``."""
+    1-cycle occupancy floor ``max(1, fu + mem)`` — or, with ``tau``, the
+    soft floor ``softmaximum(1, fu + mem)`` (the hard floor has zero
+    gradient wherever θ pushed a node under it; one shared re-weighting,
+    so the hard and soft evaluators cannot drift apart)."""
     A = arrays or _Reweight(prob, theta_op.device)
     B = theta_op.shape[0]
     fu = A.fu_lat * theta_op[:, A.node_op]
@@ -131,7 +142,8 @@ def _reweight(prob: DSEProblem, theta_op: torch.Tensor,
         st_lat[st] = lat * th
         mem_scale[:, nodes] = th
     mem = A.mem_lat * mem_scale
-    work = torch.clamp_min(fu + mem, 1.0)
+    work = (torch.clamp_min(fu + mem, 1.0) if tau is None
+            else softmaximum(1.0, fu + mem, tau))
     return work, st_lat, fu
 
 
@@ -152,14 +164,16 @@ class _Sweep:
         """``x`` as a float32 tensor on this evaluator's device."""
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
-    def times(self, to: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
-        """θ (B, n_op), (B, n_st) -> (B, n) completion times."""
-        work, st_lat, _ = _reweight(self.prob, to, ts, self.arrays)
+    def times(self, to: torch.Tensor, ts: torch.Tensor, tau=None
+              ) -> torch.Tensor:
+        """θ (B, n_op), (B, n_st) -> (B, n) completion times; ``tau`` (a
+        0-d tensor on this device) selects the soft family."""
+        work, st_lat, _ = _reweight(self.prob, to, ts, self.arrays, tau)
         # the fixed point reads the unscaled fu_lat for the queueing
         # fold-back; the scaled fu enters through `work`
         base = self.base.expand(work.shape[0], -1).contiguous()
         return _fixed_point_core(self.solver, work, base, st_lat,
-                                 self.n_iters)
+                                 self.n_iters, tau)
 
     def __call__(self, theta_op, theta_st) -> torch.Tensor:
         return self.times(self.tensor(theta_op),
@@ -232,6 +246,98 @@ def sweep(prob: DSEProblem, thetas_op: np.ndarray, thetas_st: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# smooth evaluation + knob-space gradients (the co-design inner loop)
+# ---------------------------------------------------------------------------
+
+
+def _rows_value_and_grad(f: Callable, knobs, device: torch.device
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``f``: (B, K) knobs -> (B,) or (B, C) values, where row b depends on
+    knob row b only.  Returns the values and their gradients, (B, K) or
+    (B, C, K), detached.  Rows are independent, so one backward pass of a
+    column's sum gives every row its own gradient — the reference's
+    ``vmap(value_and_grad)``, and per column its ``jacrev``."""
+    with torch.enable_grad():
+        k = torch.as_tensor(knobs, dtype=torch.float32,
+                            device=device).detach().requires_grad_(True)
+        v = f(k)
+        cols = [v] if v.dim() == 1 else list(v.unbind(1))
+        grads = [torch.autograd.grad(c.sum(), k,
+                                     retain_graph=i < len(cols) - 1)[0]
+                 for i, c in enumerate(cols)]
+    g = grads[0] if v.dim() == 1 else torch.stack(grads, dim=1)
+    return v.detach(), g
+
+
+def _pad_identity(k: torch.Tensor) -> torch.Tensor:
+    """(B, K) knobs -> (B, K + 1) with the identity column (θ = 1 for the
+    classes no knob controls)."""
+    return torch.cat([k, k.new_ones((k.shape[0], 1))], dim=1)
+
+
+def evaluate_theta_soft(prob: DSEProblem, theta_op, theta_st, tau,
+                        n_iters: int = 2, engine: str = DEFAULT_ENGINE,
+                        device=None) -> torch.Tensor:
+    """Smooth estimated cycles, the τ-tempered counterpart of
+    ``evaluate_theta`` (soft occupancy floor, soft fixed point, soft
+    makespan reduction): ((n_op,), (n_st,)) -> a scalar or ((B, n_op), (B,
+    n_st)) -> (B,).  Upper-bounds the hard estimate and converges to it as
+    τ → 0; differentiable in θ (tensors that require grad keep their
+    graph).  ``engine``: ``"wavefront"`` (default) or ``"condensed"``."""
+    sw = compiled_sweep(prob, n_iters, engine, device)
+    to, ts = sw.tensor(theta_op), sw.tensor(theta_st)
+    one = to.dim() == 1
+    tau = _as_tau(tau, sw.device)
+    out = softmax_reduce(sw.times(to[None] if one else to,
+                                  ts[None] if one else ts, tau), tau, dim=1)
+    return out[0] if one else out
+
+
+class _GradSweep:
+    """The cached function of ``grad_sweep``: the projection's gathers and
+    the problem's evaluator on one device."""
+
+    def __init__(self, prob: DSEProblem, op_idx: np.ndarray,
+                 st_idx: np.ndarray, n_iters: int, device: torch.device):
+        self.sweep = compiled_sweep(prob, n_iters, DEFAULT_ENGINE, device)
+        self.device = self.sweep.device
+        self.oi = torch.as_tensor(op_idx, dtype=torch.long, device=device)
+        self.si = torch.as_tensor(st_idx, dtype=torch.long, device=device)
+
+    def __call__(self, knobs, tau) -> Tuple[torch.Tensor, torch.Tensor]:
+        tau = _as_tau(tau, self.device)
+
+        def f(k):
+            padded = _pad_identity(k)
+            t = self.sweep.times(padded[:, self.oi], padded[:, self.si], tau)
+            return softmax_reduce(t, tau, dim=1)
+
+        return _rows_value_and_grad(f, knobs, self.device)
+
+
+def grad_sweep(prob: DSEProblem, op_idx: np.ndarray, st_idx: np.ndarray,
+               n_iters: int = 2, device=None) -> Callable:
+    """Cached value-and-gradient from *shared knob space* on ``device``:
+    ``fn(knobs (B, K), tau) -> (soft cycles (B,), d cycles/d knob (B, K))``
+    tensors.
+
+    ``op_idx`` / ``st_idx`` are ``DesignSpace.projection(prob)`` gather maps
+    (op-class/storage -> knob, with K = the identity column); the gather
+    is inside the differentiated function, so the gradient is already in
+    the K shared knobs.  The cache is keyed by the maps, ``n_iters`` and
+    the device; τ is an argument, so annealing reuses it."""
+    dev = resolve_device(device)
+    op_idx = np.asarray(op_idx, np.int64)
+    st_idx = np.asarray(st_idx, np.int64)
+    key = ("grad", n_iters, op_idx.tobytes(), st_idx.tobytes(), str(dev))
+    fn = prob._compiled.get(key)
+    if fn is None:
+        fn = _GradSweep(prob, op_idx, st_idx, n_iters, dev)
+        prob._compiled[key] = fn
+    return fn
+
+
+# ---------------------------------------------------------------------------
 # stacked per-layer programs: whole-network end-to-end latency
 # ---------------------------------------------------------------------------
 
@@ -295,11 +401,23 @@ def _layer_times(sw: "_Sweep", theta_op: torch.Tensor,
     return t.amax(dim=1), p
 
 
+def _layer_times_soft(sw: "_Sweep", theta_op: torch.Tensor,
+                      theta_st: torch.Tensor, tau, k_prologue: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Smooth counterpart of ``_layer_times`` (soft floor, soft fixed
+    point, soft reductions) — differentiable in θ everywhere."""
+    t = sw.times(theta_op, theta_st, tau)
+    p = (softmax_reduce(t[:, :k_prologue], tau, dim=1) if k_prologue > 0
+         else torch.zeros_like(t[:, 0]))
+    return softmax_reduce(t, tau, dim=1), p
+
+
 def _compose(stack: LayerStack, m: torch.Tensor, p: torch.Tensor,
-             mode: str) -> torch.Tensor:
+             mode: str, minimum: Callable = torch.minimum) -> torch.Tensor:
     """(B, L) per-unique-layer makespans/prologues -> (B,) end-to-end
-    cycles (overlap can't exceed the previous layer's makespan or the next
-    layer's prologue)."""
+    cycles.  ``minimum`` is the overlap clip — ``torch.minimum`` on the
+    hard path, a τ-softmin on the smooth one (overlap can't exceed the
+    previous layer's makespan or the next layer's prologue)."""
     dev = m.device
     rl = torch.as_tensor(stack.run_layer, dtype=torch.long, device=dev)
     reps = torch.as_tensor(stack.run_reps, dtype=torch.float32, device=dev)
@@ -308,11 +426,11 @@ def _compose(stack: LayerStack, m: torch.Tensor, p: torch.Tensor,
     if mode == "sequential":
         return total
     fw = torch.as_tensor(stack.fits_within, dtype=torch.float32, device=dev)
-    within = ((reps - 1.0) * torch.minimum(pr, mr) * fw).sum(dim=1)
+    within = ((reps - 1.0) * minimum(pr, mr) * fw).sum(dim=1)
     if stack.run_layer.shape[0] > 1:
         fb = torch.as_tensor(stack.fits_between, dtype=torch.float32,
                              device=dev)
-        between = (torch.minimum(pr[:, 1:], mr[:, :-1]) * fb).sum(dim=1)
+        between = (minimum(pr[:, 1:], mr[:, :-1]) * fb).sum(dim=1)
     else:
         between = torch.zeros_like(total)
     return total - within - between
@@ -351,6 +469,63 @@ def compiled_network_sweep(stack: LayerStack, n_iters: int = 2,
     fn = stack._compiled.get(key)
     if fn is None:
         fn = _NetworkSweep(stack, n_iters, engine, mode, dev)
+        stack._compiled[key] = fn
+    return fn
+
+
+class _GradNetworkSweep:
+    """The cached function of ``grad_network_sweep``: every unique layer's
+    evaluator and projection gathers, then the soft composition."""
+
+    def __init__(self, stack: LayerStack, projections, n_iters: int,
+                 mode: str, device: torch.device):
+        self.stack, self.mode = stack, mode
+        self.sweeps = [compiled_sweep(prob, n_iters, DEFAULT_ENGINE, device)
+                       for prob in stack.problems]
+        self.device = self.sweeps[0].device
+        self.ks = [int(k) for k in stack.prologue_len]
+        T = lambda x: torch.as_tensor(x, dtype=torch.long, device=device)
+        self.gathers = [(T(oi), T(si)) for oi, si in projections]
+
+    def __call__(self, knobs, tau) -> Tuple[torch.Tensor, torch.Tensor]:
+        tau = _as_tau(tau, self.device)
+        softmin = lambda a, b: -softmaximum(-a, -b, tau)
+
+        def f(k):
+            padded = _pad_identity(k)
+            times = [_layer_times_soft(sw, padded[:, oi], padded[:, si], tau,
+                                       kp)
+                     for sw, kp, (oi, si)
+                     in zip(self.sweeps, self.ks, self.gathers)]
+            m = torch.stack([t[0] for t in times], dim=1)
+            p = torch.stack([t[1] for t in times], dim=1)
+            return _compose(self.stack, m, p, self.mode, minimum=softmin)
+
+        return _rows_value_and_grad(f, knobs, self.device)
+
+
+def grad_network_sweep(stack: LayerStack, projections: Sequence[Tuple],
+                       n_iters: int = 2, mode: str = "sequential",
+                       device=None) -> Callable:
+    """Cached value-and-gradient of *end-to-end* network latency from
+    shared knob space on ``device``: ``fn(knobs (B, K), tau) -> (soft
+    cycles (B,), d cycles/d knob (B, K))`` tensors.
+
+    ``projections[u]`` is ``DesignSpace.projection(problems[u])``; the
+    per-layer gathers, soft fixed points and the composition are one
+    differentiated function.  In ``sequential`` mode the soft value
+    upper-bounds the hard one; ``pipelined`` also softens the overlap clip
+    with a softmin, which approximates rather than bounds."""
+    if mode not in NETWORK_MODES:
+        raise ValueError(f"mode must be one of {NETWORK_MODES}, got {mode!r}")
+    dev = resolve_device(device)
+    projections = [(np.asarray(oi, np.int64), np.asarray(si, np.int64))
+                   for oi, si in projections]
+    key = (("grad", n_iters, mode, str(dev))
+           + tuple(oi.tobytes() + si.tobytes() for oi, si in projections))
+    fn = stack._compiled.get(key)
+    if fn is None:
+        fn = _GradNetworkSweep(stack, projections, n_iters, mode, dev)
         stack._compiled[key] = fn
     return fn
 
@@ -494,7 +669,16 @@ class _Bucket:
 
     Rows (R) and candidates (B) are explicit batch dimensions: state is
     (B, R, NK + W); a window step gathers every row's window at once with
-    flat indices ``r * (NK + W) + position``."""
+    flat indices ``r * (NK + W) + position``.
+
+    ``tau`` None runs the hard family; a 0-d tensor the reference's soft
+    branch (``_row_fn(soft=True)``): soft floors on the work and absorbed
+    weights, the soft window reduction and chain combine,
+    ``logcumsumexp`` single-slot queues, a ``softmaximum`` multi-slot
+    service begin, a ``softmaximum`` fold of the bases after all families
+    are scattered and ``softmax_reduce`` makespans.  The soft branch
+    updates the multi-slot vector and the need vector out of place
+    (autograd keeps what each step read); the hard branch is unchanged."""
 
     def __init__(self, arrays: dict, n_iters: int, device: torch.device):
         A = arrays
@@ -551,7 +735,7 @@ class _Bucket:
                 free0=T(np.where(np.arange(g["SL"])[None, None, :]
                                  < g["sl"][:, :, None], 0.0, _BIG), F)))
 
-    def _relax(self, b, w, extra, v_lv):
+    def _relax(self, b, w, extra, v_lv, tau=None):
         """The condensed wavefront of every row and candidate: (B, R, NK)
         bases -> (B, R, NK) completion times."""
         B = w.shape[0]
@@ -569,16 +753,18 @@ class _Bucket:
                                    _take(t, self.src[lv], (R, W, P))
                                    + _take(extra, self.exw[lv], (R, W, P)),
                                    NEG)
-                r = torch.maximum(r, vals.amax(dim=3))
+                r = (torch.maximum(r, vals.amax(dim=3)) if tau is None
+                     else softmaximum(r, softmax_reduce(vals, tau, dim=3),
+                                      tau))
             h = r + _take(work_pad, wi, (R, W))
             if self.has_chains:
-                _, h = affine_scan(_take(v_lv, wi, (R, W)), h)
+                _, h = affine_scan(_take(v_lv, wi, (R, W)), h, tau)
             tf.index_copy_(1, wi, h.reshape(B, R * W))
         return t[:, :, :NK].contiguous()
 
-    def _queue(self, q, kn, t, w):
-        """One queue family for every row, storage and candidate: (scatter
-        positions (B, R, NS * SA), service needs)."""
+    def _queue(self, q, kn, t, w, tau=None):
+        """One queue family for every row, storage and candidate: the
+        service needs (B, R, NS * SA)."""
         B = t.shape[0]
         R, NS, SA = q["shape"]
         msk = q["msk"]
@@ -593,8 +779,12 @@ class _Bucket:
             arr_s, lat_s = arr.gather(3, o), lat.gather(3, o)
         if q["single"]:
             S = _cumsum_ordered(lat_s, 3)
-            done_s = S + torch.cummax(arr_s - S + lat_s, dim=3).values
-        else:
+            if tau is None:
+                done_s = S + torch.cummax(arr_s - S + lat_s, dim=3).values
+            else:
+                done_s = S + tau * torch.logcumsumexp(
+                    (arr_s - S + lat_s) / tau, dim=3)
+        elif tau is None:
             free = q["free0"].expand(B, -1, -1, -1).clone()
             done_s = torch.empty_like(arr_s)
             for k in range(SA):
@@ -603,6 +793,16 @@ class _Bucket:
                     + lat_s[..., k:k + 1]
                 free.scatter_(3, j, d)
                 done_s[..., k:k + 1] = d
+        else:
+            free = q["free0"].expand(B, -1, -1, -1)
+            done = []
+            for k in range(SA):
+                j = free.argmin(dim=3, keepdim=True)   # earliest-free slot
+                d = softmaximum(arr_s[..., k:k + 1], free.gather(3, j),
+                                tau) + lat_s[..., k:k + 1]
+                free = free.scatter(3, j, d)
+                done.append(d)
+            done_s = torch.cat(done, dim=3)
         if q["ordered"]:
             done = done_s
         else:     # inverse permutation by scatter, not a second sort
@@ -612,18 +812,19 @@ class _Bucket:
         need = torch.where(msk, done + q["fu"] - w_nd, NEG)
         return need.reshape(B, R, NS * SA)
 
-    def __call__(self, kn: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def __call__(self, kn: torch.Tensor, tau=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, K + 1) knobs with the identity column -> per-row (makespan,
         prologue completion), each (B, R)."""
         B = kn.shape[0]
         NK, W, R = self.NK, self.W, self.R
-        w = torch.clamp_min(self.fu * kn[:, self.opk]
-                            + self.mem * kn[:, self.stk], 1.0)
+        floor = ((lambda x: torch.clamp_min(x, 1.0)) if tau is None
+                 else (lambda x: softmaximum(1.0, x, tau)))
+        w = floor(self.fu * kn[:, self.opk] + self.mem * kn[:, self.stk])
         w_pad = torch.cat([w, w.new_zeros((B, R, W))], dim=2)
         coupled = self.vc > NEG / 2
         if self.has_absorbed:
-            aw = torch.clamp_min(self.ab_fu * kn[:, self.ab_opk], 1.0) \
-                + self.ab_const
+            aw = floor(self.ab_fu * kn[:, self.ab_opk]) + self.ab_const
             tot0 = torch.cat([aw.new_zeros((B, R, 1)),
                               _cumsum_ordered(aw, 2)], dim=2)
             prefix = tot0[:, :, 1:] - tot0.gather(
@@ -638,18 +839,29 @@ class _Bucket:
         else:
             extra = self.const[None]      # one copy for every candidate
             v_lv = torch.where(coupled, self.vc + w_pad, NEG)
-        t = self._relax(self.base.expand(B, -1, -1), w, extra, v_lv)
+        t = self._relax(self.base.expand(B, -1, -1), w, extra, v_lv, tau)
         for _ in range(self.n_iters if self.queues else 0):
             need_full = torch.full((B, R, NK + 1), NEG, dtype=torch.float32,
                                    device=kn.device)
             for q in self.queues:
-                need_full.scatter_reduce_(
-                    2, q["scatter"].expand(B, -1, -1),
-                    self._queue(q, kn, t, w), "amax", include_self=True)
-            t = self._relax(torch.maximum(self.base, need_full[:, :, :NK]),
-                            w, extra, v_lv)
-        m = torch.where(self.nmask, t, NEG).amax(dim=2)
-        p = torch.where(self.prol, t, NEG).amax(dim=2)
+                need = self._queue(q, kn, t, w, tau)
+                at = q["scatter"].expand(B, -1, -1)
+                if tau is None:
+                    need_full.scatter_reduce_(2, at, need, "amax",
+                                              include_self=True)
+                else:
+                    need_full = need_full.scatter_reduce(
+                        2, at, need, "amax", include_self=True)
+            b = (torch.maximum(self.base, need_full[:, :, :NK]) if tau is None
+                 else softmaximum(self.base, need_full[:, :, :NK], tau))
+            t = self._relax(b, w, extra, v_lv, tau)
+        tm = torch.where(self.nmask, t, NEG)
+        tp = torch.where(self.prol, t, NEG)
+        if tau is None:
+            m, p = tm.amax(dim=2), tp.amax(dim=2)
+        else:
+            m, p = softmax_reduce(tm, tau, dim=2), softmax_reduce(tp, tau,
+                                                                  dim=2)
         return m, torch.where(self.has_prol > 0, p, 0.0)
 
 
@@ -669,7 +881,8 @@ class PackedMatrix:
 
     Built by :meth:`build` from cell :class:`PackSpec`s on one device;
     ``repro_torch.core.aidg.explorer.Explorer`` (``engine="packed"``, the
-    default) routes ``evaluate`` and coordinate descent through it.
+    default) routes ``evaluate``, coordinate descent and the gradient
+    search (``grad_fn`` / ``grad3_fn``, the soft family) through it.
     """
 
     def __init__(self, rows: List[_PackedRow], specs: List[PackSpec],
@@ -683,6 +896,8 @@ class PackedMatrix:
         self.device = device
         self._arrays: Dict[torch.device, dict] = {}   # device -> arrays
         self._buckets: Optional[List[List[int]]] = None
+        # ("grad" | "grad3", baselines bytes...) -> gradient function
+        self._compiled: Dict[Tuple, Callable] = {}
 
     # -- construction -------------------------------------------------------
 
@@ -896,6 +1111,14 @@ class PackedMatrix:
         hit = self._arrays.get(dev)
         if hit is not None:
             return hit
+        # the first build usually happens inside a hard evaluation's
+        # inference mode; the soft family's backward must be able to save
+        # these constants, so they are built as normal tensors
+        with torch.inference_mode(False):
+            return self._build_arrays_on(dev)
+
+    def _build_arrays_on(self, dev: torch.device) -> dict:
+        """``_build_arrays`` for one (uncached) device."""
         buckets = self._bucketize()
         bucket_fns = [_Bucket(self._bucket_arrays(b), self.n_iters, dev)
                       for b in buckets]
@@ -939,26 +1162,31 @@ class PackedMatrix:
 
     # -- the evaluator ------------------------------------------------------
 
-    def _matrix(self, knobs: torch.Tensor
+    def _matrix(self, knobs: torch.Tensor, tau=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, K) knobs -> per-cell ``(cycles (B, S), energy (B, S))`` on
         the knobs' device: every bucket's fixed point, bucket outputs
         re-ordered to global rows, then the run-length composition per
         cell.  Energy rides the same evaluation: the pre-folded
-        ``(1/θ) @ edyn`` plus the static term ``P_static · cycles``."""
+        ``(1/θ) @ edyn`` plus the static term ``P_static · cycles`` (which
+        differentiates through the soft makespan).  ``tau`` (a 0-d tensor
+        on the knobs' device) selects the soft family, whose overlap clip
+        is the softmin ``-softmaximum(-a, -b)``."""
         A = self._build_arrays(knobs.device)
         B = knobs.shape[0]
         kn = torch.cat([knobs, knobs.new_ones((B, 1))], dim=1)
-        outs = [bucket(kn) for bucket in A["buckets"]]
+        outs = [bucket(kn, tau) for bucket in A["buckets"]]
         m = torch.cat([o[0] for o in outs], dim=1)[:, A["inv"]]
         p = torch.cat([o[1] for o in outs], dim=1)[:, A["inv"]]
         runs, reps = A["runs"], A["reps"]
         mr, pr = m[:, runs], p[:, runs]                 # (B, S, RU)
+        clip = (torch.minimum if tau is None
+                else (lambda a, b: -softmaximum(-a, -b, tau)))
         # sums in order, so a candidate's row does not depend on the batch
         total = _sum_ordered(reps * mr)
-        within = _sum_ordered((reps - 1.0) * torch.minimum(pr, mr) * A["fw"])
+        within = _sum_ordered((reps - 1.0) * clip(pr, mr) * A["fw"])
         if A["RU"] > 1:
-            between = _sum_ordered(torch.minimum(pr[:, :, 1:], mr[:, :, :-1])
+            between = _sum_ordered(clip(pr[:, :, 1:], mr[:, :, :-1])
                                    * A["fb"])
         else:
             between = torch.zeros_like(total)
@@ -1096,11 +1324,59 @@ class PackedMatrix:
                 "cycles_base": np.asarray(cycles[0], np.float64),
                 "energy_base": np.asarray(energy[0], np.float64)}
 
+    def _mean_over_cells(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S) -> (B,) mean over the cells, summed in order."""
+        return _sum_ordered(x) / self.n_cells
+
     def grad_fn(self, baselines: np.ndarray) -> Callable:
-        """Not ported yet (ROADMAP.md, queue A7)."""
-        raise NotImplementedError(GRAD_TODO)
+        """Cached value-and-gradient over the soft family: ``fn(knobs (B,
+        K), tau) -> (mean normalized latency (B,), d latency / d knob (B,
+        K))`` tensors on the matrix's device — the whole matrix's gradient
+        from one evaluation and one backward pass (τ is an argument, so
+        annealing reuses the function)."""
+        key = ("grad", np.asarray(baselines, np.float64).tobytes())
+        fn = self._compiled.get(key)
+        if fn is None:
+            bl = torch.as_tensor(np.asarray(baselines, np.float32),
+                                 device=self.device)
+
+            def fn(knobs, tau):
+                t = _as_tau(tau, self.device)
+                return _rows_value_and_grad(
+                    lambda k: self._mean_over_cells(self._matrix(k, t)[0]
+                                                    / bl),
+                    knobs, self.device)
+
+            self._compiled[key] = fn
+        return fn
 
     def grad3_fn(self, baselines: np.ndarray,
                  energy_baselines: np.ndarray) -> Callable:
-        """Not ported yet (ROADMAP.md, queue A7)."""
-        raise NotImplementedError(GRAD_TODO)
+        """Cached multi-objective gradient over the soft family: ``fn(knobs
+        (B, K), tau) -> (values (B, 2), jacobian (B, 2, K))`` tensors, row
+        0 the mean normalized latency and row 1 the mean normalized energy
+        — one soft evaluation and one backward pass per objective (the
+        reference's ``jacrev``); the energy's gradient is the analytic
+        ``-edyn_k/θ_k²`` plus the static term through the soft makespan."""
+        key = ("grad3", np.asarray(baselines, np.float64).tobytes(),
+               np.asarray(energy_baselines, np.float64).tobytes())
+        fn = self._compiled.get(key)
+        if fn is None:
+            bl = torch.as_tensor(np.asarray(baselines, np.float32),
+                                 device=self.device)
+            ebl = torch.as_tensor(np.maximum(
+                np.asarray(energy_baselines, np.float64), 1e-30
+            ).astype(np.float32), device=self.device)
+
+            def vals(k, t):
+                c, en = self._matrix(k, t)
+                return torch.stack([self._mean_over_cells(c / bl),
+                                    self._mean_over_cells(en / ebl)], dim=1)
+
+            def fn(knobs, tau):
+                t = _as_tau(tau, self.device)
+                return _rows_value_and_grad(lambda k: vals(k, t), knobs,
+                                            self.device)
+
+            self._compiled[key] = fn
+        return fn

@@ -13,7 +13,9 @@ batched sweeps on the device:
 * **DesignSpace / Knob** — named multiplicative latency factors shared
   across architectures, matched to op classes and storages by regex.
 * **Candidate generators** — ``grid_candidates``, ``random_candidates``,
-  and ``Explorer.refine`` (coordinate descent around the incumbent).
+  and ``Explorer.refine`` (coordinate descent around the incumbent, or
+  ``method="grad"``: projected Adam over the smooth relaxation,
+  ``core.aidg.gradient``).
 * **Multi-objective scoring + Pareto frontier** — latency (mean
   baseline-relative cycles) vs. energy vs. an area-cost proxy;
   ``pareto_front`` extracts the deterministic non-dominated set.
@@ -24,9 +26,7 @@ the 10 operator cells and, with ``networks=``, the whole-network cells of
 cell chain-condensed, padded into shape buckets, and evaluated for all
 cells and all candidates together.  The per-cell engines remain:
 ``"blocked"`` (max-plus Kleene closures, every ⊗ on the hand-written CUDA
-kernel), ``"wavefront"``, ``"condensed"`` and ``"scan"``.
-``refine(method="grad")`` (the soft family) is not ported yet and raises
-``NotImplementedError``::
+kernel), ``"wavefront"``, ``"condensed"`` and ``"scan"``::
 
     from repro_torch.core.aidg.explorer import (Explorer, DEFAULT_SPACE,
                                                 random_candidates)
@@ -277,6 +277,15 @@ class CompiledScenario:
             if ki < space.n:
                 nodes = aidg.storage_nodes[st_name]
                 w[ki] += float(aidg.mem_words[nodes].sum())
+
+    def grad_fn(self, proj, n_iters: int = 2, device=None) -> Callable:
+        """Cached value-and-gradient from shared knob space on ``device``:
+        ``fn(knobs (B, K), tau) -> (soft cycles (B,), gradient (B, K))``
+        tensors (``dse.grad_sweep``)."""
+        from .dse import grad_sweep
+        op_idx, st_idx = proj
+        return grad_sweep(self.problem, op_idx, st_idx, n_iters=n_iters,
+                          device=device)
 
     def energy_coeffs(self, space: "DesignSpace", proj
                       ) -> Tuple[np.ndarray, float]:
@@ -757,33 +766,50 @@ class Explorer:
         return ExplorationResult(self.space, self.scenario_names, kt, cycles,
                                  latency, energy, cost, front)
 
-    # -- refinement: coordinate descent ------------------------------------
+    # -- refinement: coordinate descent or gradient descent -----------------
 
     def refine(self, start: Optional[np.ndarray] = None,
                rounds: Optional[int] = None, points: Optional[int] = None,
-               objective: str = "product", method: str = "coord"
-               ) -> np.ndarray:
-        """Refine the incumbent design by deterministic coordinate descent:
+               objective: str = "product", method: str = "coord",
+               **grad_kwargs) -> np.ndarray:
+        """Refine the incumbent design.
+
+        ``method="coord"`` (default): deterministic coordinate descent —
         sweep one knob at a time over ``points`` (default 9) log-spaced
         levels (others fixed), keep the argmin, cycle ``rounds`` (default
         2) times; evaluates ``(points + 1) x n_knobs x rounds`` candidates
         through the explorer's engine (the packed matrix by default).
 
+        ``method="grad"``: batched multi-start projected Adam over the
+        smooth max-plus relaxation (``core.aidg.gradient``); ``grad_kwargs``
+        (``starts``, ``steps``, ``lr``, ``tau0``, ``tau_min``, ``seed``) pass
+        through to ``GradientExplorer.refine``.
+
+        Arguments that belong to the *other* method are rejected, not
+        silently ignored (``rounds``/``points`` are coordinate-descent
+        knobs; the gradient budget is ``starts``/``steps``).
+
         ``objective``: 'product' minimizes latency * cost; 'latency'
         ignores cost; 'energy' minimizes normalized energy; 'edp' minimizes
-        latency * energy.  ``method="grad"`` (the reference's gradient
-        search) is not ported yet and raises ``NotImplementedError``."""
+        latency * energy."""
         if objective not in ("product", "latency", "energy", "edp"):
             raise ValueError(
                 f"objective must be one of 'product', 'latency', 'energy' "
                 f"or 'edp', got {objective!r}")
         if method == "grad":
-            raise NotImplementedError(
-                "method='grad' is not ported yet (ROADMAP.md, queue A7: soft "
-                "family and gradients)")
+            if rounds is not None or points is not None:
+                raise TypeError(
+                    "rounds/points configure coordinate descent; for "
+                    "method='grad' size the search with starts/steps")
+            from .gradient import GradientExplorer
+            ge = GradientExplorer(self, objective=objective)
+            return ge.refine(start=start, **grad_kwargs).theta
         if method != "coord":
             raise ValueError(f"method must be 'coord' or 'grad', "
                              f"got {method!r}")
+        if grad_kwargs:
+            raise TypeError(f"unexpected arguments for method='coord': "
+                            f"{sorted(grad_kwargs)}")
         rounds = 2 if rounds is None else rounds
         points = 9 if points is None else points
         cur = (np.ones(self.space.n, np.float32) if start is None

@@ -30,7 +30,19 @@ The storage request-slot queueing (arrival-ordered service) is
 ``slot_queue_scan``.  Sorts are ``stable=True`` throughout: queue tie-breaks
 must match the reference's stable ``argsort``.
 
-The smooth (τ-soft) family is not ported yet (ROADMAP.md, queue A).
+**The smooth relaxation family** (gradient-based co-design):
+``longest_path_soft`` / ``slot_queue_soft`` / ``fixed_point_soft`` replace
+each hard ``max`` with the temperature-τ log-sum-exp
+
+    softmax_τ(x₁, …, x_K) = τ · log Σ_k exp(x_k / τ)
+                          ∈ [max_k x_k,  max_k x_k + τ·log K]
+
+which is smooth everywhere, monotone in every argument, and recovers the
+exact result as τ → 0; autograd differentiates it.  Every engine function
+that has a soft branch takes ``tau``: ``None`` is the hard path, left
+operation for operation as it was; a value selects the soft family (the
+reference's trace-time ``soft`` flag).  τ is carried as a 0-d float32
+tensor on the data's device, as the reference traces it.
 """
 
 from __future__ import annotations
@@ -63,10 +75,16 @@ __all__ = [
     "maxplus_matmul_torch",
     "maxplus_closure",
     "Solver",
+    "softmaximum",
+    "softmax_reduce",
+    "longest_path_soft",
+    "slot_queue_soft",
+    "fixed_point_soft",
 ]
 
 ENGINES = ("wavefront", "scan", "blocked", "condensed")
 DEFAULT_ENGINE = "wavefront"
+SOFT_ENGINES = ("wavefront", "condensed")     # engines with a soft family
 
 AIDGLike = Union[AIDG, CompiledAIDG]
 Tensor = torch.Tensor
@@ -137,13 +155,14 @@ def longest_path_scan(aidg: AIDGLike, work=None, base=None,
 
 def _wavefront_impl(work: Tensor, base: Tensor, preds_lv: Tensor,
                     extra_lv: Tensor, starts: Tuple[int, ...], order: Tensor,
-                    rank: Tensor, width: int) -> Tensor:
+                    rank: Tensor, width: int, tau=None) -> Tensor:
     """One loop step per *level* over the level-major renumbering: each
     step takes a contiguous ``width`` window of (preds, extra, work, base),
     gathers the already-final predecessor times, reduces over the
     predecessor axis and writes the window back.  Lanes past the level's
     true extent compute garbage and are overwritten when their own level
-    runs."""
+    runs.  With ``tau`` the reduction is ``softmax_reduce`` over the
+    concatenated ``[base, preds]`` (the reference's order)."""
     B = work.shape[0]
     dev = work.device
     work_lv = torch.cat([work[:, order],
@@ -159,7 +178,11 @@ def _wavefront_impl(work: Tensor, base: Tensor, preds_lv: Tensor,
     for start in starts:
         s = slice(start, start + width)
         vals = torch.where(valid[s], t[:, idx[s]] + extra_lv[s], NEG)
-        m = torch.maximum(base_lv[:, s], vals.amax(dim=2))
+        if tau is None:
+            m = torch.maximum(base_lv[:, s], vals.amax(dim=2))
+        else:
+            m = softmax_reduce(torch.cat([base_lv[:, s, None], vals], dim=2),
+                               tau, dim=2)
         t[:, s] = m + work_lv[:, s]
     return t[:, rank]
 
@@ -192,29 +215,33 @@ def _interleave(even: Tensor, odd: Tensor) -> Tensor:
     return out
 
 
-def _affine_op(va: Tensor, ha: Tensor, vb: Tensor, hb: Tensor
+def _affine_op(va: Tensor, ha: Tensor, vb: Tensor, hb: Tensor, tau=None
                ) -> Tuple[Tensor, Tensor]:
-    """(v₁, h₁) ∘ (v₂, h₂) = (max(v₁ + v₂, NEG), max(h₁ + v₂, h₂))."""
-    return torch.clamp_min(va + vb, NEG), torch.maximum(ha + vb, hb)
+    """(v₁, h₁) ∘ (v₂, h₂) = (max(v₁ + v₂, NEG), max(h₁ + v₂, h₂)); with
+    ``tau`` the h combine is ``softmaximum`` (smooth chains compose under
+    the same operator)."""
+    h = (torch.maximum(ha + vb, hb) if tau is None
+         else softmaximum(ha + vb, hb, tau))
+    return torch.clamp_min(va + vb, NEG), h
 
 
-def affine_scan(v: Tensor, h: Tensor) -> Tuple[Tensor, Tensor]:
+def affine_scan(v: Tensor, h: Tensor, tau=None) -> Tuple[Tensor, Tensor]:
     """Inclusive scan of the max-plus affine composition along the last
     axis, in log-many steps, with the combine order of the reference's
     ``lax.associative_scan``: combine adjacent pairs, scan the half-length
     result recursively, then fill the even positions — so every partial
-    sum is formed as the reference forms it."""
+    sum is formed as the reference forms it.  ``tau``: the soft combine."""
     n = v.shape[-1]
     if n < 2:
         return v, h
     rv, rh = _affine_op(v[..., 0:n - 1:2], h[..., 0:n - 1:2], v[..., 1::2],
-                        h[..., 1::2])
-    ov, oh = affine_scan(rv, rh)
+                        h[..., 1::2], tau)
+    ov, oh = affine_scan(rv, rh, tau)
     if n % 2 == 0:
         ev, eh = _affine_op(ov[..., :-1], oh[..., :-1], v[..., 2::2],
-                            h[..., 2::2])
+                            h[..., 2::2], tau)
     else:
-        ev, eh = _affine_op(ov, oh, v[..., 2::2], h[..., 2::2])
+        ev, eh = _affine_op(ov, oh, v[..., 2::2], h[..., 2::2], tau)
     ev = torch.cat([v[..., :1], ev], dim=-1)
     eh = torch.cat([h[..., :1], eh], dim=-1)
     return _interleave(ev, ov), _interleave(eh, oh)
@@ -236,7 +263,7 @@ def _prefix(A: "_CondArrays", w: Tensor) -> Tensor:
 
 def condensed_scan(w_perm: Tensor, b_perm: Tensor, extra_lv: Tensor,
                    v_lv: Tensor, preds_lv: Tensor, starts: Tuple[int, ...],
-                   has_chains: bool = True) -> Tensor:
+                   has_chains: bool = True, tau=None) -> Tensor:
     """The condensed wavefront for a batch: one loop step per UNIT level.
     Each step gathers the already-final cross-unit predecessor times,
     reduces them with the window's base, then resolves every affine chain
@@ -261,9 +288,10 @@ def condensed_scan(w_perm: Tensor, b_perm: Tensor, extra_lv: Tensor,
         r = base_pad[:, s]
         if P:
             vals = torch.where(valid[s], t[:, idx[s]] + extra_lv[:, s], NEG)
-            r = torch.maximum(r, vals.amax(dim=2))
+            r = (torch.maximum(r, vals.amax(dim=2)) if tau is None
+                 else softmaximum(r, softmax_reduce(vals, tau, dim=2), tau))
         if has_chains:
-            _, tw = affine_scan(v_lv[:, s], r + work_pad[:, s])
+            _, tw = affine_scan(v_lv[:, s], r + work_pad[:, s], tau)
         else:
             tw = r + work_pad[:, s]
         t[:, s] = tw
@@ -293,13 +321,14 @@ class _CondArrays:
         self.has_chains = cond.stats["n_coupled"] > 0
 
 
-def _condensed_relax_for(A: _CondArrays, w: Tensor
+def _condensed_relax_for(A: _CondArrays, w: Tensor, tau=None
                          ) -> Callable[[Tensor], Tensor]:
     """(B, n) work -> the condensed relaxation ``base (B, n) -> t (B, n)``:
     kept nodes by the unit-level wavefront with in-window affine chains,
     absorbed nodes rebuilt as anchor + exact prefix sum.  Everything that
     depends on work only (prefix sums, edge and coupling weights) is
-    computed here once."""
+    computed here once.  ``tau``: the soft family (absorbed steps and
+    chain couplings keep their exact sums)."""
     cond = A.cond
     B = w.shape[0]
     wk = w[:, A.kept_perm]
@@ -319,7 +348,7 @@ def _condensed_relax_for(A: _CondArrays, w: Tensor
 
     def relax(b: Tensor) -> Tensor:
         tk = condensed_scan(wk, b[:, A.kept_perm], extra, v_lv, A.preds,
-                            A.starts, has_chains=A.has_chains)
+                            A.starts, has_chains=A.has_chains, tau=tau)
         t = torch.zeros((B, cond.n), dtype=torch.float32, device=w.device)
         t[:, A.kept_perm] = tk
         if prefix is not None:
@@ -519,6 +548,88 @@ def slot_queue_scan(arrival: Tensor, lat: Tensor, slots: int) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
+# smooth max-plus relaxation (temperature-τ log-sum-exp family)
+# ---------------------------------------------------------------------------
+
+
+def _as_tau(tau, device: torch.device) -> Tensor:
+    """τ as a 0-d float32 tensor on ``device`` (a tensor already there is
+    returned as it is)."""
+    return torch.as_tensor(tau, dtype=torch.float32, device=device)
+
+
+def softmaximum(a, b, tau) -> Tensor:
+    """Smooth two-argument max: τ·logaddexp(a/τ, b/τ) ≥ max(a, b), exact as
+    τ → 0; monotone in both arguments and smooth everywhere — the gradient
+    splits between a and b by their softmax weights (evenly at a tie)
+    instead of picking a winner.
+
+    Written as the reference's ``logaddexp`` computes its value, ``max(x,
+    y) + log1p(exp(-|x - y|))``, so that autograd differentiates the exact
+    weights σ(x - y): ``torch.logaddexp``'s backward forms them as exp(x -
+    out), and out, rounded at the scale of x (= a/τ, 10⁵ and more at small
+    τ), puts a relative error of ulp(x) on every weight — compounding over
+    a path of soft maxima."""
+    x, y = a / tau, b / tau
+    return tau * (torch.maximum(x, y) + torch.log1p(torch.exp(-(x - y).abs())))
+
+
+def softmax_reduce(x: Tensor, tau, dim: int = -1) -> Tensor:
+    """Smooth max-reduction: τ·logsumexp(x/τ) over ``dim``, formed as
+    ``jax.nn.logsumexp`` forms it — shifted by the (constant) maximum, so
+    the gradient is the exact softmax exp(a - max)/Σ, not exp(a - out)
+    (see ``softmaximum``).  Entries at the ``NEG`` sentinel get softmax
+    weight exp(NEG/τ - max/τ) = 0 (NEG/τ stays finite in float32 down to
+    τ = 1e-20), so padded slots stay inert."""
+    a = x / tau
+    m = a.amax(dim=dim, keepdim=True).detach()
+    return tau * (torch.log(torch.exp(a - m).sum(dim=dim)) + m.squeeze(dim))
+
+
+def longest_path_soft(aidg: AIDGLike, tau: float = 0.05, work=None,
+                      base=None, device=None) -> Tensor:
+    """Smooth wavefront relaxation: upper-bounds ``longest_path_wavefront``
+    node-wise, with per-node slack at most depth·τ·log(in-degree + 1), so
+    the τ → 0 limit is the exact longest path.  Differentiable in (work,
+    base) everywhere."""
+    dev = resolve_device(device)
+    ca = _as_compiled(aidg)
+    w, b, one = _pair(work, base, ca.aidg, dev)
+    t = Solver(ca, "wavefront", dev).relax_for(w, _as_tau(tau, dev))(b)
+    return t[0] if one else t
+
+
+def slot_queue_soft(arrival: Tensor, lat: Tensor, slots: int, tau
+                    ) -> Tensor:
+    """``slot_queue_scan`` with every hard max softened.
+
+    The single-slot closed form stays closed-form: ``done_k = S_k +
+    max_{j<=k}(arrival_j - S_{j-1})`` becomes ``S_k + τ·logcumsumexp((arrival
+    - S + lat)/τ)``.  Multi-slot queues keep the sorted slot-vector loop
+    with a ``softmaximum`` service begin; the sort is piecewise-constant
+    in the parameters and needs no smoothing (stable, as the reference's,
+    so tied slots route their gradients alike)."""
+    tau = _as_tau(tau, arrival.device)
+    if slots == 1:
+        S = torch.cumsum(lat, dim=-1)
+        return S + tau * torch.logcumsumexp((arrival - S + lat) / tau,
+                                            dim=-1)
+    one = arrival.dim() == 1
+    arr = arrival[None] if one else arrival
+    lt = lat[None] if one else lat
+    free = torch.zeros((arr.shape[0], slots), dtype=torch.float32,
+                       device=arr.device)
+    done = []
+    for k in range(arr.shape[1]):
+        d = softmaximum(arr[:, k], free[:, 0], tau) + lt[:, k]
+        done.append(d)
+        free = torch.sort(torch.cat([d[:, None], free[:, 1:]], dim=1),
+                          dim=1, stable=True).values
+    out = torch.stack(done, dim=1)
+    return out[0] if one else out
+
+
+# ---------------------------------------------------------------------------
 # engine dispatch + the queueing fixed point
 # ---------------------------------------------------------------------------
 
@@ -562,24 +673,31 @@ class Solver:
         self.scatter = {st: T(ca.storage_scatter[st], torch.long)
                         for st in ca.storage_order}
 
-    def relax_for(self, work: Tensor) -> Callable[[Tensor], Tensor]:
+    def relax_for(self, work: Tensor, tau=None
+                  ) -> Callable[[Tensor], Tensor]:
         """(B, n) work -> the relaxation ``base (B, n) -> t (B, n)``.  The
         blocked engine's closures depend only on work, so they are computed
         here once and reused by every relaxation of a fixed point (the
         reference recomputes them per relaxation; the result is the
         same).  Their mode comes from ``plan_closure``: the structure's
         lower-triangularity (cached) and one read of max |work| bound every
-        value a closure takes by block x (max finite |d| + max |w|)."""
+        value a closure takes by block x (max finite |d| + max |w|).
+        ``tau`` selects the soft family, which only the wavefront and
+        condensed engines have."""
         n = self.ca.aidg.n
+        if tau is not None and self.engine not in SOFT_ENGINES:
+            raise ValueError(f"fixed_point_soft supports engines "
+                             f"'wavefront' and 'condensed', got "
+                             f"{self.engine!r}")
         if self.engine == "wavefront":
             pl, el, st, od, rk, width = self._wf
             return lambda b: _wavefront_impl(work, b, pl, el, st, od, rk,
-                                             width)
+                                             width, tau)
         if self.engine == "scan":
             preds, extra = self._scan
             return lambda b: _scan_impl(work, b, preds, extra)
         if self.engine == "condensed":
-            return _condensed_relax_for(self._cond, work)
+            return _condensed_relax_for(self._cond, work, tau)
         Dd, Ds, fs, fd, fw = self._bl
         block = self.block
         nb, B = Dd.shape[0], work.shape[0]
@@ -607,24 +725,48 @@ class Solver:
 
 def _fixed_point_core(solver: Solver, w: Tensor, b0: Tensor,
                       storage_lat: Optional[Dict[str, Tensor]],
-                      n_iters: int) -> Tensor:
+                      n_iters: int, tau=None) -> Tensor:
     """(B, n) work and bases -> (B, n) completion times: relax the DAG,
     replay each storage's accesses in estimated-arrival order through
-    ``slot_queue_scan``, fold the service needs back into the bases
-    (``scatter_reduce`` amax), iterate.  The arrival order is a stable
-    argsort and its inverse a scatter of the identity.  ``storage_lat``
-    None takes the AIDG's own latencies."""
-    relax = solver.relax_for(w)
+    ``queue``, ``fold`` the service needs back into the bases, iterate —
+    one fixed point for the hard family (``tau`` None: ``slot_queue_scan``,
+    a ``scatter_reduce`` amax fold) and the soft one (``slot_queue_soft``
+    and ``_fold_soft``), so the gradient descends the objective the hard
+    path scores.  The arrival order is a stable argsort (piecewise-constant
+    in θ: a constant gather for autograd) and its inverse a scatter of the
+    identity.  ``storage_lat`` None takes the AIDG's own latencies."""
+    if tau is None:
+        queue, fold = slot_queue_scan, _fold_max
+    else:
+        queue = lambda arr, lat, slots: slot_queue_soft(arr, lat, slots, tau)
+        fold = lambda b, nd, need: _fold_soft(b, nd, need, tau)
+    relax = solver.relax_for(w, tau)
     t = relax(b0)
     if not solver.ca.aidg.storage_nodes:
         return t
     for _ in range(n_iters):
-        t = relax(_queue_fold(solver, w, t, b0, storage_lat))
+        t = relax(_queue_fold(solver, w, t, b0, storage_lat, queue, fold))
     return t
 
 
+def _fold_max(b: Tensor, nd: Tensor, need: Tensor) -> Tensor:
+    """The hard fold: max the access needs into their nodes' bases."""
+    return b.scatter_reduce(1, nd.expand(need.shape[0], -1), need, "amax",
+                            include_self=True)
+
+
+def _fold_soft(b: Tensor, nd: Tensor, need: Tensor, tau) -> Tensor:
+    """The soft fold, as the reference's: scatter the needs into an
+    all-NEG node vector (duplicates keep the hard max — a zero-measure
+    kink), then ``softmaximum`` it into the bases; softmaximum(b, NEG) == b,
+    so untouched nodes are inert."""
+    return softmaximum(b, _fold_max(torch.full_like(b, NEG), nd, need), tau)
+
+
 def _queue_fold(solver: Solver, w: Tensor, t: Tensor, b0: Tensor,
-                storage_lat: Optional[Dict[str, Tensor]]) -> Tensor:
+                storage_lat: Optional[Dict[str, Tensor]],
+                queue: Callable = slot_queue_scan,
+                fold: Callable = _fold_max) -> Tensor:
     """One queueing step of ``_fixed_point_core``: the bases ``b0`` with
     each storage's service needs, from its accesses replayed in the
     arrival order that the completion times ``t`` give."""
@@ -641,15 +783,14 @@ def _queue_fold(solver: Solver, w: Tensor, t: Tensor, b0: Tensor,
         w_nd = w[:, nd]
         arrival = t[:, nd] - w_nd
         order = torch.argsort(arrival, dim=1, stable=True)
-        done_sorted = slot_queue_scan(arrival.gather(1, order),
-                                      lats.gather(1, order), slots)
+        done_sorted = queue(arrival.gather(1, order), lats.gather(1, order),
+                            slots)
         inv = torch.empty_like(order).scatter_(
             1, order, torch.arange(order.shape[1], device=w.device)
             .expand(B, -1))
         done = done_sorted.gather(1, inv)        # back to access order
         need = done + solver.fu_lat[nd] - w_nd
-        b = b.scatter_reduce(1, nd.expand(B, -1), need, "amax",
-                             include_self=True)
+        b = fold(b, nd, need)
     return b
 
 
@@ -662,7 +803,16 @@ def fixed_point_torch(aidg: AIDGLike, n_iters: int = 3, work=None, base=None,
     DAG relaxation between queueing folds."""
     dev = resolve_device(device)
     ca = _as_compiled(aidg)
-    a = ca.aidg
+    w, b, sl, one = _fixed_point_inputs(ca.aidg, work, base, storage_lat,
+                                        dev)
+    t = _fixed_point_core(Solver(ca, engine, dev), w, b, sl, n_iters)
+    return t[0] if one else t
+
+
+def _fixed_point_inputs(a: AIDG, work, base, storage_lat, dev):
+    """``work``/``base`` (n,) or (B, n) and ``storage_lat`` {name: (k,) or
+    (B, k)} (or the AIDG's own) as tensors with one batch size, and
+    whether ``work`` was 1-D."""
     w, one = _batched(work, a.work, dev)
     b, _ = _batched(base, a.base, dev)
     B = max(w.shape[0], b.shape[0])
@@ -672,7 +822,27 @@ def fixed_point_torch(aidg: AIDGLike, n_iters: int = 3, work=None, base=None,
         sl = {name: _batched(storage_lat[name], a.storage_lat[name],
                              dev)[0].expand(B, -1)
               for name in a.storage_lat}
-    t = _fixed_point_core(Solver(ca, engine, dev), w, b, sl, n_iters)
+    return w, b, sl, one
+
+
+def fixed_point_soft(aidg: AIDGLike, tau: float = 0.05, n_iters: int = 3,
+                     work=None, base=None,
+                     storage_lat: Optional[Dict[str, object]] = None,
+                     engine: str = DEFAULT_ENGINE, device=None) -> Tensor:
+    """``fixed_point_torch`` over the smooth family: soft relaxations
+    between queueing folds, ``slot_queue_soft`` inside them and a
+    ``softmaximum`` base fold-back.  ``engine``: ``"wavefront"`` (default)
+    or ``"condensed"`` (chain super-edges keep their exact sums — a
+    tighter soft relaxation on a shorter loop)."""
+    if engine not in SOFT_ENGINES:
+        raise ValueError(f"fixed_point_soft supports engines 'wavefront' "
+                         f"and 'condensed', got {engine!r}")
+    dev = resolve_device(device)
+    ca = _as_compiled(aidg)
+    w, b, sl, one = _fixed_point_inputs(ca.aidg, work, base, storage_lat,
+                                        dev)
+    t = _fixed_point_core(Solver(ca, engine, dev), w, b, sl, n_iters,
+                          tau=_as_tau(tau, dev))
     return t[0] if one else t
 
 

@@ -13,7 +13,7 @@ cache (``explorer.compile_scenario``), so a layer shape repeated inside a
 network — or shared between networks — builds its AIDG exactly once.
 
 ``CompiledNetwork`` implements the Explorer's cell protocol
-(``projection`` / ``evaluate`` / ``accumulate_weights`` /
+(``projection`` / ``evaluate`` / ``accumulate_weights`` / ``grad_fn`` /
 ``energy_coeffs`` / ``pack_spec`` / ``simulate`` / ``stats_row``): a
 network cell sits in the scenario matrix next to single-operator cells,
 is swept by the same shared knob vectors, and reports *end-to-end*
@@ -29,8 +29,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ...configs import get_config
-from ..aidg.dse import (GRAD_TODO, LayerStack, NETWORK_MODES, PackSpec,
-                        compiled_network_sweep)
+from ..aidg.dse import (LayerStack, NETWORK_MODES, PackSpec,
+                        compiled_network_sweep, grad_network_sweep)
 from ..aidg.explorer import (CompiledScenario, DesignSpace,
                              compile_scenario)
 from ..aidg.maxplus import DEFAULT_ENGINE
@@ -245,10 +245,12 @@ class CompiledNetwork:
             cs.accumulate_weights(space, pr, wc)
             w += wc * r
 
-    def grad_fn(self, proj, n_iters: int = 2):
-        """End-to-end soft latency and its gradient: not ported yet
-        (ROADMAP.md, queue A7)."""
-        raise NotImplementedError(GRAD_TODO)
+    def grad_fn(self, proj, n_iters: int = 2, device=None):
+        """Cached value-and-gradient of end-to-end soft latency on
+        ``device``: ``fn(knobs (B, K), tau) -> (soft cycles (B,), gradient
+        (B, K))`` tensors (``dse.grad_network_sweep``)."""
+        return grad_network_sweep(self.stack, proj, n_iters=n_iters,
+                                  mode=self.scenario.mode, device=device)
 
     def energy_coeffs(self, space: DesignSpace, proj
                       ) -> Tuple[np.ndarray, float]:

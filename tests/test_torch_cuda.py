@@ -1,7 +1,8 @@
 """Card-only tests of the port: each hand-written kernel (max-plus,
 flash attention, selective scan, systolic GEMM) against its plain PyTorch
-version on the card, the blocked and packed Explorer paths, the
-``kernels.ops`` wrappers and a small LM forward through the kernels.
+version on the card, the blocked and packed Explorer paths and the
+packed soft gradients, the ``kernels.ops`` wrappers and a small LM
+forward through the kernels.
 Every test is marked ``cuda`` and skips where no card is present.
 
 This file imports neither ``jax`` nor ``repro``, so it runs on a machine
@@ -757,3 +758,65 @@ def test_small_service_answers_on_card(card):
     with DSEService(svc.explorer, pool=16, seed=1, surrogate=bundle,
                     surrogate_max_err=10.0) as fast:
         assert fast.query(q).tier == "surrogate"
+
+
+def _fd_rows(k0: np.ndarray, eps: float) -> np.ndarray:
+    """Central-difference rows around each knob of ``k0`` (1, K)."""
+    K_ = k0.shape[1]
+    rows = np.repeat(k0, 2 * K_, axis=0)
+    rows[np.arange(0, 2 * K_, 2), np.arange(K_)] += eps
+    rows[np.arange(1, 2 * K_, 2), np.arange(K_)] -= eps
+    return rows
+
+
+def test_packed_grad_fn_on_card_matches_cpu(card):
+    """The soft packed gradient on the card against the same code on the
+    CPU, on 4 cells at two random knob rows: values rtol 1e-5 (float32
+    exp/log1p of the two devices differ by an ulp or two, and sums of the
+    soft reductions run in another order); gradients within 2e-3 — the
+    bound the CPU port keeps to central differences of the reference's
+    values (``tests/test_torch_gradient.py``), since a near-tie that the
+    CPU splits evenly may break one way on the card; and the card's
+    gradient within 5% of its own central differences at τ = 0.2 (the
+    reference's finite-difference gate)."""
+    scs = port_ex.default_scenarios()[:4]
+    gpu = port_ex.Explorer(scs, device=card)
+    cpu = port_ex.Explorer(scs, device="cpu")
+    rng = np.random.default_rng(11)
+    k = np.exp(rng.uniform(-0.5, 0.5, (2, 5))).astype(np.float32)
+    fg = gpu.packed_matrix().grad_fn(gpu.baselines)
+    fc = cpu.packed_matrix().grad_fn(cpu.baselines)
+    for tau in (0.5, 0.05):
+        vg, gg = fg(k, tau)
+        vc, gc = fc(k, tau)
+        assert vg.device.type == "cuda" and gg.shape == (2, 5)
+        np.testing.assert_allclose(vg.cpu().numpy(), vc.numpy(), rtol=1e-5)
+        assert np.abs(gg.cpu().numpy() - gc.numpy()).max() <= 2e-3, tau
+    eps = 1e-2
+    v, g = fg(np.concatenate([k[:1], _fd_rows(k[:1], eps)]), 0.2)
+    v = v.cpu().numpy().astype(np.float64)
+    fd = (v[1::2] - v[2::2]) / (2 * eps)
+    g = g.cpu().numpy()[0]
+    assert np.all(np.abs(fd - g) <= 5e-2 * np.maximum(1.0, np.abs(fd)))
+
+
+def test_soft_gradients_finite_on_card_at_small_tau(card):
+    """τ = 0.01 (NEG/τ = -1e20, still finite in float32): every packed
+    gradient and Jacobian entry, and a network cell's stacked gradient,
+    finite on the card; the gradient search returns an in-box design."""
+    from repro_torch.core.network import NetworkScenario
+    ex = port_ex.Explorer(port_ex.default_scenarios()[:4], device=card)
+    pm = ex.packed_matrix()
+    k = np.ones((2, 5), np.float32)
+    k[1] = 0.6
+    _, g = pm.grad_fn(ex.baselines)(k, 0.01)
+    _, j = pm.grad3_fn(ex.baselines, ex.energy_baselines)(k, 0.01)
+    assert torch.isfinite(g).all() and torch.isfinite(j).all()
+    cn = NetworkScenario("tpu_v5e", "olmo_1b", mode="pipelined").compile()
+    fn = cn.grad_fn(cn.projection(port_ex.DEFAULT_SPACE), device=card)
+    v, g = fn(k, 0.01)
+    assert torch.isfinite(v).all() and torch.isfinite(g).all()
+    theta = ex.refine(method="grad", starts=2, steps=3)
+    lo = np.asarray([kn.lo for kn in ex.space.knobs])
+    hi = np.asarray([kn.hi for kn in ex.space.knobs])
+    assert np.all(theta >= lo - 1e-6) and np.all(theta <= hi + 1e-6)

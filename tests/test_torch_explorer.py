@@ -157,16 +157,18 @@ def test_blocked_path_runs_every_product_through_the_kernel_module(
 
 def test_unported_engines_and_methods_raise(port_explorer):
     """"packed" (the default) and "condensed" are ported now and agree
-    with the blocked engine at θ = 1; the gradient search and the sharded
-    evaluator still raise, naming ROADMAP.md."""
+    with the blocked engine at θ = 1; the gradient search is ported too
+    (on a per-cell engine it descends each cell's wavefront soft family)
+    and returns an in-box design; the sharded evaluator needs the packed
+    engine."""
     for engine in ("packed", "condensed"):
         ex = port_ex.Explorer(_cells(port_ex)[5:6], engine=engine,
                               device=CPU)
         assert ex.baselines.tolist() == [GOLDEN_THETA1_CYCLES["eyeriss/conv"]]
     assert port_ex.Explorer(_cells(port_ex)[5:6], device=CPU).engine == \
         "packed"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_explorer.refine(method="grad")
+    theta = port_explorer.refine(method="grad", starts=1, steps=2)
+    assert np.array_equal(port_explorer.space.clip(theta), theta)
     with pytest.raises(ValueError, match="requires engine='packed'"):
         port_explorer.evaluate(np.ones((1, 5)), sharded=True)
     with pytest.raises(ValueError, match="unknown engine"):

@@ -244,13 +244,22 @@ def test_pack_spec_and_dedup():
 
 
 def test_unported_packed_paths_raise(port_packed):
+    """The paths this test once held to ``NotImplementedError`` are ported
+    (their contracts: ``tests/test_torch_gradient.py``): ``grad_fn`` and
+    ``grad3_fn`` return cached functions of the right shapes, and
+    ``refine(method="grad")`` an in-box design."""
     pm = port_packed.packed_matrix()
-    for call in (lambda: pm.grad_fn(port_packed.baselines),
-                 lambda: pm.grad3_fn(port_packed.baselines,
-                                     port_packed.energy_baselines),
-                 lambda: port_packed.refine(method="grad")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    fn = pm.grad_fn(port_packed.baselines)
+    assert fn is pm.grad_fn(port_packed.baselines)
+    fn3 = pm.grad3_fn(port_packed.baselines, port_packed.energy_baselines)
+    k = np.ones((2, 5), np.float32)
+    v, g = fn(k, 0.5)
+    v3, j = fn3(k, 0.5)
+    assert v.shape == (2,) and g.shape == (2, 5)
+    assert v3.shape == (2, 2) and j.shape == (2, 2, 5)
+    assert torch.equal(v3[:, 0], v) and torch.isfinite(j).all()
+    theta = port_packed.refine(method="grad", starts=1, steps=2)
+    assert np.array_equal(port_packed.space.clip(theta), theta)
 
 
 # ---------------------------------------------------------------------------
@@ -315,8 +324,13 @@ def test_pipelined_bounded_by_sequential_and_layers(arch):
             seq.evaluate(space, one, device=CPU)[0]), "no overlap credited"
     with pytest.raises(ValueError, match="mode"):
         port_dse.compiled_network_sweep(seq.stack, mode="nope", device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        seq.grad_fn(seq.projection(space))
+    # the soft end-to-end latency upper-bounds the hard one (ported; its
+    # contract against the reference: tests/test_torch_gradient.py)
+    one = np.ones((1, 5), np.float32)
+    v, g = seq.grad_fn(seq.projection(space), device=CPU)(one, 0.5)
+    assert float(v[0]) >= float(seq.evaluate(space, one, device=CPU)[0]) \
+        - 1e-2
+    assert torch.isfinite(g).all()
 
 
 def test_repeated_layers_compile_once_and_share_across_networks():
