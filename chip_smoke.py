@@ -139,9 +139,11 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    knob box, its score the hard evaluator's; (b) ``GradientExplorer`` over
    phase 10's 31-cell Explorer, objective ``product`` at
    ``GRAD_PRODUCT_STEPS`` steps and ``edp`` (through ``grad3_fn``) at
-   ``GRAD_EDP_STEPS`` (both cut from the default 22 to fit the phase's
-   time), each step's forward and backward seconds, τ and ``obj_min``
-   printed, one step profiled (device idle share) and its peak memory;
+   ``GRAD_EDP_STEPS`` (both cut from the default 22 to keep the phase
+   near ~180 s: 4 and 1 steps), each step's forward and backward seconds,
+   τ and ``obj_min`` printed, a 31-cell step's peak memory and one
+   10-cell step profiled (device idle share; a 31-cell step costs the
+   profiler ~60 s of its own work);
    (c) central differences (τ 0.2, step 1e-2, every knob) against
    ``PackedMatrix.grad_fn`` on 31 cells and one network cell's
    ``CompiledNetwork.grad_fn`` within 5% (plus the differences' own
@@ -151,12 +153,41 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    latency at τ = 0.01 and θ = 1 within 5e-3 of the hard one on every
    cell, and not below it (- 1e-3) on the sequential cells; (e) whether
    two identical gradient evaluations (31 cells) and two identical short
-   refines (10 cells) are bit-equal (if not, the same under
-   ``torch.use_deterministic_algorithms(True)``), the incumbents held to
-   ``DETERMINISM_RTOL``;
+   refines (10 cells, ``GRAD_DETERMINISM_STEPS`` steps) are bit-equal (if
+   not, the same under ``torch.use_deterministic_algorithms(True)``), the
+   incumbents held to ``DETERMINISM_RTOL``;
+13. training on the card (``repro_torch.launch``; autograd through the
+   LM, no kernel of the table on this path), the four kernels' counters
+   zeroed just before and read just after (no launch and no plain call):
+   (a) olmo-1b at full width and depth (16 layers, d 2048), random
+   float32 masters from seed 0, bf16 compute, remat on, B = 4, S = 4096
+   (``train_4k``'s sequence; its global batch of 256 cut to 4 for one
+   card), ``TRAIN_STEPS`` steps of ``train_loop`` over
+   ``TokenPipeline(synthetic_source)`` with no checkpoint directory: each
+   step's seconds (host clock around a synchronised step), loss, grad norm
+   and lr; the median step (after the first), tokens/s and the model FLOP
+   share of the card's dense bf16 peak (6·N·T plus causal attention,
+   6·L·B·H·D·S², the remat forward not counted); peak memory; one step
+   profiled (device activity only: idle share, device time by kernel,
+   cuBLAS products summed) and the step's parts timed apart with CUDA
+   events (chunked attention forward x 2 + backward x 16 layers,
+   cross-entropy forward + backward, AdamW, the casts); losses and grad
+   norms finite (a finite global norm means every gradient is); (b)
+   olmo-1b at full width, depth cut to 2 layers, float32 compute, one
+   fixed batch: 5 steps lower its loss, and ``train_microbatches`` 1 and 2
+   give gradients within ``MICRO_TOL`` of each leaf's largest magnitude;
+   (c) crash-resume (``tests/test_train_e2e.py``'s contract) at full
+   width, depth 2, B = 2, S = 1024: 16 steps straight against a crash at
+   step 12 after the step-8 checkpoint and a restart, step 15's loss
+   within rtol 1e-5, checkpoints (~2.8 GB each) under ``build/`` and
+   deleted after; (d) olmoe-1b-7b (64 experts, top 8) and falcon-mamba-7b
+   at published widths, depth cut to 2 layers, ``FAMILY_STEPS`` steps on
+   a fixed batch: losses finite and falling, grad norms finite, peak
+   memory;
 
-each phase's time, then one ``{"kernels": [...]}`` line, the card line
-again, and as the last line ``{"ok": true, "device": {...}}``.  It needs
+each phase's time and the whole script's, then one ``{"kernels": [...]}``
+line, the card line again, and as the last line ``{"ok": true, "device":
+{...}}``.  It needs
 one card; without one it exits non-zero before printing any result.
 """
 
@@ -234,10 +265,11 @@ SHARD_BATCH = 1003     # not a multiple of 4: the split pads
 # -- the gradient search (tests/test_gradient_dse.py's gates) ---------------
 GRAD_GATE = 1.001      # gradient incumbent <= coordinate descent x this
 # refine steps on 31 cells, cut from the default 22 to keep phase 12 near
-# its ~180 s: a step there takes ~4.6 s (product) and ~8 s (edp: two
-# backward passes)
-GRAD_PRODUCT_STEPS = 10
-GRAD_EDP_STEPS = 3
+# its ~180 s: a step there takes ~5.4 s (product) and ~10 s (edp: two
+# backward passes); the determinism check's two refines on 10 cells
+GRAD_PRODUCT_STEPS = 4
+GRAD_EDP_STEPS = 1
+GRAD_DETERMINISM_STEPS = 2
 GRAD_FD_TAU = 0.2      # finite differences: τ, step and the 5% gate
 GRAD_FD_EPS = 1e-2
 GRAD_FD_GATE = 5e-2
@@ -253,6 +285,30 @@ SOFT_FLOOR = 1e-3
 # each knob by at most lr a step, so a reordered sum can move an incumbent
 # only where a gradient is near zero — held to this relative difference
 DETERMINISM_RTOL = 1e-2
+
+# -- training (phase 13) ------------------------------------------------------
+TRAIN_ARCH = "olmo_1b"
+TRAIN_B, TRAIN_S = 4, 4096   # train_4k's sequence; its batch 256 cut to 4
+TRAIN_STEPS = 8
+TRAIN_LR = 3e-4
+# cuBLAS kernel names: all products, the float32 ones on the CUDA cores
+# (the attention's score and P·V einsums), the rest
+CUBLAS_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+F32_GEMM_NAMES = ("gemm_f32f32", "sgemm")
+UPDATE_LAYERS = 2      # (b)-(d): depth cut to 2 layers
+UPDATE_STEPS = 5
+# fixed-batch steps at full width: Adam's first steps move every weight by
+# ~lr, and at d 2048 lr 1e-3 (and 3e-4 after the first step) overshoots
+# (the first chip run: 11.3 -> 13.0 -> 11.8 -> 18.4 at 1e-3)
+UPDATE_LR = 3e-5
+# microbatches 1 vs 2 at float32 (TF32 off): the same gradient summed in
+# another order, held to this share of each leaf's largest magnitude
+MICRO_TOL = 1e-4
+RESUME_B, RESUME_S = 2, 1024
+RESUME_RTOL = 1e-5     # tests/test_train_e2e.py
+FAMILY_ARCHS = ("olmoe_1b_7b", "falcon_mamba_7b")
+FAMILY_B, FAMILY_S = 2, 1024
+FAMILY_STEPS = 5
 
 # θ = 1 cycles of the 10 default cells, pinned in the reference's tests
 GOLDEN_THETA1_CYCLES = {
@@ -339,14 +395,15 @@ def rate(cells: int, secs) -> float:
     return cells * N_CAND / float(np.median(secs))
 
 
-def profile_call(fn, label: str, watch=(), cpu: bool = True) -> None:
+def profile_call(fn, label: str, watch=(), cpu: bool = True,
+                 top: int = 10) -> None:
     """One call of ``fn`` under ``torch.profiler``: device time by kernel
     and the share of the host-clock span the device was busy, and the
     summed device time of the kernels whose names hold each string of
-    ``watch``.  Prints "not measured" when the profiler records no device
-    time.  ``cpu=False`` records the device's activity only (a call of
-    ~10⁶ operator events costs minutes of the profiler's own work with
-    the host's)."""
+    ``watch`` (or, for a tuple, any of its strings).  Prints "not
+    measured" when the profiler records no device time.  ``cpu=False``
+    records the device's activity only (a call of ~10⁶ operator events
+    costs minutes of the profiler's own work with the host's)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CUDA]
@@ -371,7 +428,7 @@ def profile_call(fn, label: str, watch=(), cpu: bool = True) -> None:
         print(f"profile ({label}): device time not measured (the profiler "
               f"recorded no device events)", flush=True)
         return
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:top]
     print(f"profile ({label}, profiler on): span {wall_us / 1e3:.1f}"
           f" ms, device busy {total / 1e3:.1f} ms = "
           f"{100 * total / wall_us:.1f}% (idle {100 - 100 * total / wall_us:.1f}"
@@ -379,10 +436,12 @@ def profile_call(fn, label: str, watch=(), cpu: bool = True) -> None:
     for name, us in top:
         print(f"  {us / 1e3:9.2f} ms {100 * us / total:5.1f}%  {name[:90]}",
               flush=True)
-    for part in watch:
-        us = sum(v for k, v in dev_us.items() if part in k)
-        print(f"  kernels named *{part}*: {us / 1e3:.2f} ms "
-              f"{100 * us / total:.1f}% of the device time", flush=True)
+    for part in watch:     # a string, or a tuple of alternatives
+        names = (part,) if isinstance(part, str) else part
+        us = sum(v for k, v in dev_us.items() if any(n in k for n in names))
+        print(f"  kernels named {' or '.join(f'*{n}*' for n in names)}: "
+              f"{us / 1e3:.2f} ms {100 * us / total:.1f}% of the device "
+              f"time", flush=True)
 
 
 def bound(triples: int, nbytes: int):
@@ -1067,9 +1126,11 @@ def bf16_agreement(lm, params, plain_cfg, kern_cfg, toks, f32_logits):
           f"{BF16_PARITY} x the plain path's {err_p:.4e}")
 
 
+@torch.no_grad()
 def jamba_phases(FA, SS, dev) -> dict:
-    """Phases 7 and 8: the full-width float32 check, then serving in bf16.
-    Returns the LM main path's launch counts."""
+    """Phases 7 and 8: the full-width float32 check, then serving in bf16,
+    with autograd off (the passes run under ``inference_mode``).  Returns
+    the LM main path's launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.convert import cast_params
     from repro_torch.models import get_model
@@ -1881,8 +1942,10 @@ def grad_gate(dev):
     return ex
 
 
-def grad_matrix(ex, dev):
-    """12 (b): the gradient search over the 31-cell matrix."""
+def grad_matrix(ex, ex10, dev):
+    """12 (b): the gradient search over the 31-cell matrix; one 10-cell
+    step profiled (the profiler's own work grows with the step's kernel
+    count: ~60 s on a 31-cell step)."""
     from repro_torch.core.aidg.gradient import GradientExplorer
     from repro_torch.core.aidg.maxplus import _as_tau
     for objective, steps in (("product", GRAD_PRODUCT_STEPS),
@@ -1913,8 +1976,10 @@ def grad_matrix(ex, dev):
           f"peak device memory {(peak - held) / 2**30:.3f} GiB above the "
           f"{held / 2**30:.3f} GiB held before it", flush=True)
     lap("one step for its peak memory")
-    profile_call(lambda: fn(k, 0.05), "one gradient step, 31 cells",
-                 cpu=False)
+    fn10 = ex10.packed_matrix().grad_fn(ex10.baselines)
+    fn10(k, 0.05)
+    profile_call(lambda: fn10(k, 0.05),
+                 f"one gradient step, {len(ex10.compiled)} cells", cpu=False)
     lap("the profiled step, with the profiler's own work")
     with torch.no_grad():
         soft = pm._matrix(torch.ones((1, ex.space.n), device=dev),
@@ -2001,8 +2066,8 @@ def grad_checks(ex, ex10, soft, dev):
               f"deterministic implementation: {named or 'none'}",
               flush=True)
     ge = GradientExplorer(ex10)
-    r1 = ge.refine(starts=2, steps=3, seed=5)
-    r2 = ge.refine(starts=2, steps=3, seed=5)
+    r1 = ge.refine(starts=2, steps=GRAD_DETERMINISM_STEPS, seed=5)
+    r2 = ge.refine(starts=2, steps=GRAD_DETERMINISM_STEPS, seed=5)
     same = (np.array_equal(r1.final_thetas, r2.final_thetas)
             and r1.history == r2.history)
     gap = float(np.max(np.abs(r1.final_thetas - r2.final_thetas)
@@ -2011,7 +2076,8 @@ def grad_checks(ex, ex10, soft, dev):
           and abs(r1.score - r2.score) <= DETERMINISM_RTOL * r2.score,
           f"two identical refines differ: {r1.final_thetas} vs "
           f"{r2.final_thetas}")
-    print(f"two identical refines (2 starts, 3 steps, 10 cells): "
+    print(f"two identical refines (2 starts, {GRAD_DETERMINISM_STEPS} "
+          f"steps, 10 cells): "
           f"bit-equal {same}; incumbent thetas max rel. gap {gap:.3e}, "
           f"scores {r1.score:.9f} / {r2.score:.9f} (limit "
           f"{DETERMINISM_RTOL})", flush=True)
@@ -2027,7 +2093,7 @@ def grad_phase(ex, modules, dev):
     lap = lap_clock()
     ex10 = grad_gate(dev)
     lap("(a) the gate")
-    soft = grad_matrix(ex, dev)
+    soft = grad_matrix(ex, ex10, dev)
     lap("(b) the 31-cell refines, profile and memory")
     grad_checks(ex, ex10, soft, dev)
     counts = {f"{kind}{k}": v for mod in modules
@@ -2037,6 +2103,312 @@ def grad_phase(ex, modules, dev):
                                      f"the gradient path: {counts}")
     print(f"gradient search: kernel launches and plain calls across phase "
           f"12 {counts}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: training on the card
+# ---------------------------------------------------------------------------
+
+
+class TrainClock:
+    """Times every step of ``launch.train.train_loop`` on the host clock
+    around a synchronised call: wraps the ``make_train_step`` it builds
+    its step with, while active."""
+
+    def __init__(self):
+        from repro_torch.launch import train
+        self.train, self.orig = train, train.make_train_step
+        self.secs = []
+
+    def __enter__(self):
+        def make(cfg, opt=None, remat=True):
+            step = self.orig(cfg, opt, remat)
+
+            def timed(params, opt_state, batch):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = step(params, opt_state, batch)
+                torch.cuda.synchronize()
+                self.secs.append(time.perf_counter() - t)
+                return out
+
+            return timed
+
+        self.train.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.train.make_train_step = self.orig
+
+
+def fixed_batch(cfg, b: int, s: int, dev, seed: int = 0) -> dict:
+    from repro_torch.data import DataConfig, synthetic_source
+    src = synthetic_source(DataConfig(seq_len=s, global_batch=b,
+                                      vocab_size=cfg.vocab_size, seed=seed))
+    return {k: torch.from_numpy(v).to(dev) for k, v in src(0).items()}
+
+
+def train_parts(cfg, params, dev) -> None:
+    """The parts of a step timed apart with CUDA events, as separate calls
+    at the step's shapes: chunked attention (each layer's forward twice
+    under remat, its backward once), cross-entropy forward + backward,
+    one AdamW update, the casts to bf16."""
+    from repro_torch.launch.steps import cross_entropy
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    a, bf16 = cfg.attention, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((TRAIN_B, TRAIN_S, a.n_heads, a.head_dim),
+                           generator=gen, device=dev, dtype=bf16)
+               .requires_grad_() for _ in range(3))
+    g = torch.randn(q.shape, generator=gen, device=dev, dtype=bf16)
+
+    def attn_fwd():
+        with torch.no_grad():
+            L.chunked_attention(q, k, v, causal=True)
+
+    def attn_fwd_bwd():
+        L.chunked_attention(q, k, v, causal=True).backward(g)
+
+    fwd, fwd_bwd = cuda_ms(attn_fwd, 2), cuda_ms(attn_fwd_bwd, 2)
+    del q, k, v, g
+    logits = torch.randn((TRAIN_B, TRAIN_S, cfg.vocab_size), generator=gen,
+                         device=dev, dtype=bf16).requires_grad_()
+    labels = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                           generator=gen, device=dev)
+    ce = cuda_ms(lambda: cross_entropy(logits, labels).backward(), 2)
+    del logits
+    weights = dict(params.named_parameters())
+    state = adamw_init(weights)
+    grads = {n: torch.full_like(p, 1e-3) for n, p in weights.items()}
+    opt = AdamWConfig(lr=TRAIN_LR)
+    adam = cuda_ms(lambda: adamw_update(opt, weights, grads, state), 2)
+    del state, grads
+    casts = cuda_ms(lambda: [lm.cast_tree(layer.tree(), bf16)
+                             for layer in params.layers], 2)
+    attn = cfg.n_layers * (fwd + fwd_bwd)
+    print(f"step parts (CUDA events, separate calls at the step's shapes): "
+          f"chunked attention {attn:.1f} ms ({cfg.n_layers} layers x "
+          f"(forward {fwd:.2f} + forward and backward {fwd_bwd:.2f} ms)); "
+          f"cross-entropy forward + backward {ce:.1f} ms; AdamW update "
+          f"{adam:.1f} ms; casts of the layers to bf16 {casts:.1f} ms; "
+          f"together {attn + ce + adam + casts:.1f} ms", flush=True)
+
+
+def train_full(dev) -> None:
+    """13 (a): olmo-1b at full width and depth through ``train_loop``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    with TrainClock() as clock:
+        t = time.perf_counter()
+        params, metrics = train.train_loop(
+            cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S, lr=TRAIN_LR,
+            print_fn=lines.append, device=dev)
+        total = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(p.numel() for p in params.parameters())
+    print(f"{TRAIN_ARCH} at full width and depth: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {n / 1e9:.3f} G parameters (float32 masters), "
+          f"bf16 compute, remat on; B = {TRAIN_B}, S = {TRAIN_S} (cut from "
+          f"train_4k's batch of 256); {TRAIN_STEPS} steps of train_loop in "
+          f"{total:.1f} s, {total - sum(clock.secs):.1f} s of it set-up "
+          f"(initialisation from a CPU generator, the copy to the card)",
+          flush=True)
+    for row, secs in zip(metrics.rows, clock.secs):
+        print(f"  step {row['step']}: {secs:.3f} s, loss {row['loss']:.4f}, "
+              f"grad norm {row['grad_norm']:.4f}, lr {row['lr']:.3e}",
+              flush=True)
+    check(len(clock.secs) == TRAIN_STEPS == len(metrics.rows),
+          f"{len(clock.secs)} timed steps")
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+              for r in metrics.rows), "losses and gradient norms finite")
+    step_s = float(np.median(clock.secs[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    a = cfg.attention
+    dense = 6.0 * n * tokens
+    attn = 6.0 * cfg.n_layers * TRAIN_B * a.n_heads * a.head_dim * TRAIN_S ** 2
+    flops = dense + attn
+    print(f"median step (steps 1-{TRAIN_STEPS - 1}) {step_s:.3f} s -> "
+          f"{tokens / step_s:.0f} tokens/s; model FLOP 6·N·T {dense:.3e} + "
+          f"causal attention 6·L·B·H·D·S² {attn:.3e} = {flops:.3e} a "
+          f"step "
+          f"(remat's second forward not counted) -> {flops / step_s:.3e} "
+          f"FLOP/s = {100 * flops / step_s / BF16_FLOP_PER_S:.1f}% of the "
+          f"dense bf16 peak ({BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s); peak "
+          f"device memory {peak / 2**30:.2f} GiB", flush=True)
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR))
+    state = adamw_init(dict(params.named_parameters()))
+    batch = fixed_batch(cfg, TRAIN_B, TRAIN_S, dev)
+    step(params, state, batch)
+    profile_call(lambda: step(params, state, batch),
+                 f"one {TRAIN_ARCH} training step", cpu=False, top=16,
+                 watch=(CUBLAS_NAMES, F32_GEMM_NAMES, ("softmax", "SoftMax"),
+                        ("copy", "Memcpy")))
+    del state
+    train_parts(cfg, params, dev)
+
+
+def train_update(dev) -> None:
+    """13 (b): full width, 2 layers, float32: a fixed batch's loss falls;
+    microbatches 1 and 2 give the same gradients."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+    cfg = replace(get_config(TRAIN_ARCH), n_layers=UPDATE_LAYERS,
+                  compute_dtype="float32")
+    params, state = init_train_state(cfg, torch.Generator().manual_seed(1),
+                                     dev)
+    batch = fixed_batch(cfg, TRAIN_B, TRAIN_S, dev, seed=1)
+    # the first moments after one step from the same start, clipping off:
+    # (1 - b1) times the gradient
+    opt = AdamWConfig(lr=UPDATE_LR, clip_norm=0.0)
+    moments = {}
+    for micro in (1, 2):
+        model = copy.deepcopy(params)
+        st = {"step": 0, "m": {k: t.clone() for k, t in state["m"].items()},
+              "v": {k: t.clone() for k, t in state["v"].items()}}
+        make_train_step(replace(cfg, train_microbatches=micro), opt)(
+            model, st, batch)
+        moments[micro] = st["m"]
+        del model, st
+    worst, worst_name = 0.0, ""
+    for name, m1 in moments[1].items():
+        gap = float((moments[2][name] - m1).abs().max()
+                    / m1.abs().max().clamp(min=1e-30))
+        if gap >= worst:
+            worst, worst_name = gap, name
+    check(worst <= MICRO_TOL, f"microbatches 1 vs 2: {worst_name} differs "
+                              f"by {worst:.3e} of its largest gradient")
+    del moments
+    step = make_train_step(cfg, AdamWConfig(lr=UPDATE_LR))
+    losses = []
+    for _ in range(UPDATE_STEPS):
+        _, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"fixed-batch losses {losses}")
+    print(f"{TRAIN_ARCH} full width, {UPDATE_LAYERS} layers, float32 "
+          f"compute, one batch of {TRAIN_B} x {TRAIN_S}: {UPDATE_STEPS} "
+          f"steps at lr {UPDATE_LR}, losses {fmt(losses)}; "
+          f"train_microbatches 1 vs 2, gradients' largest gap "
+          f"{worst:.2e} of the leaf's largest magnitude ({worst_name}; "
+          f"limit {MICRO_TOL})", flush=True)
+
+
+def train_resume(dev) -> None:
+    """13 (c): crash-resume at full width, 2 layers."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    cfg = replace(get_config(TRAIN_ARCH), n_layers=UPDATE_LAYERS)
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(steps=16, batch=RESUME_B, seq=RESUME_S, ckpt_every=8,
+              print_fn=lambda *a: None, device=dev)
+    try:
+        t = time.perf_counter()
+        _, m_a = train_loop(cfg, ckpt_dir=str(root / "a"), **kw)
+        a_s = time.perf_counter() - t
+        size = sum(f.stat().st_size for f in
+                   (root / "a" / "step_000000016").iterdir())
+        t = time.perf_counter()
+        try:
+            train_loop(cfg, ckpt_dir=str(root / "b"), fail_at_step=12, **kw)
+        except RuntimeError as e:
+            if "injected failure at step 12" not in str(e):
+                raise
+        else:
+            raise RuntimeError("check failed: the failure was not injected")
+        _, m_b = train_loop(cfg, ckpt_dir=str(root / "b"), **kw)
+        b_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    la = [r["loss"] for r in m_a.rows if r["step"] == 15][0]
+    lb = [r["loss"] for r in m_b.rows if r["step"] == 15][0]
+    check([r["step"] for r in m_b.rows] == list(range(8, 16)),
+          f"resumed steps {[r['step'] for r in m_b.rows]}")
+    check(abs(la - lb) <= RESUME_RTOL * abs(la),
+          f"crash-resume: step 15 loss {lb} vs {la}")
+    same = all(ra == rb for ra, rb in zip(m_a.rows[8:], m_b.rows))
+    print(f"crash-resume, {TRAIN_ARCH} full width, {UPDATE_LAYERS} layers, "
+          f"B = {RESUME_B}, S = {RESUME_S}: 16 steps straight {a_s:.1f} s; "
+          f"crash at step 12 after the step-8 checkpoint, restart, finish "
+          f"{b_s:.1f} s; step 15 loss {la:.6f} / {lb:.6f} (rtol "
+          f"{RESUME_RTOL}); steps 8-15 bit-equal {same}; a checkpoint "
+          f"{size / 2**30:.2f} GiB", flush=True)
+
+
+def train_families(dev) -> None:
+    """13 (d): the MoE and Mamba families at published widths, 2 layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+    for arch in FAMILY_ARCHS:
+        cfg = replace(get_config(arch), n_layers=UPDATE_LAYERS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params, state = init_train_state(
+            cfg, torch.Generator().manual_seed(2), dev)
+        n = sum(p.numel() for p in params.parameters())
+        batch = fixed_batch(cfg, FAMILY_B, FAMILY_S, dev, seed=2)
+        step = make_train_step(cfg, AdamWConfig(lr=UPDATE_LR))
+        losses, norms, secs = [], [], []
+        for _ in range(FAMILY_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t)
+            norms.append(float(m["grad_norm"]))
+        check(all(map(math.isfinite, losses + norms)) and
+              losses[-1] < losses[0],
+              f"{arch}: losses {losses}, grad norms {norms}")
+        print(f"{arch} at published width, {UPDATE_LAYERS} layers "
+              f"({n / 1e9:.3f} G parameters), bf16 compute, one batch of "
+              f"{FAMILY_B} x {FAMILY_S}: {FAMILY_STEPS} steps "
+              f"{fmt(secs)} s, losses {fmt(losses)}, grad norms "
+              f"{fmt(norms)}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        del params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_phase(modules, dev) -> None:
+    """Phase 13: training on the card, the kernels' counters zeroed just
+    before and read just after (no kernel of the table is on this
+    path)."""
+    for mod in modules:
+        mod.reset_counts()
+    lap = lap_clock()
+    train_full(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("(a) olmo-1b at full width and depth")
+    train_update(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("(b) the update on a fixed batch, microbatches")
+    train_resume(dev)
+    lap("(c) crash-resume")
+    train_families(dev)
+    lap("(d) olmoe-1b-7b and falcon-mamba-7b")
+    counts = {f"{kind}{k}": v for mod in modules
+              for kind, d in (("", mod.LAUNCHES), ("plain ", mod.PLAIN_CALLS))
+              for k, v in d.items()}
+    check(sum(counts.values()) == 0, f"kernels or plain versions ran on "
+                                     f"the training path: {counts}")
+    print(f"training: kernel launches and plain calls across phase 13 "
+          f"{counts}", flush=True)
 
 
 # what a kernel's row may carry beside the contract's keys (the chosen
@@ -2051,6 +2423,7 @@ EXTRA_KEYS = ("variant", "plan", "launch_ms", "device_ms",
 
 
 def main() -> int:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); nothing was run", file=sys.stderr)
@@ -2233,6 +2606,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("12 (gradient search)")
+
+    # -- 13. training on the card --------------------------------------------
+    train_phase((K, FA, SS, SG), dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("13 (training)")
+    print(f"-- the whole script took {time.perf_counter() - start:.1f} s",
+          flush=True)
 
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[name],

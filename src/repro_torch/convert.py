@@ -7,27 +7,34 @@ instance the reference package's — so one graph can be fed to both.
 
 ``lm_params_from_numpy`` does the same for an LM: it takes the reference's
 parameter pytree as numpy arrays and returns the port's ``LM`` module.
-``cast_params`` casts a module's weights to the compute dtype once, in
-place.  ``surrogate_params_from_numpy`` carries a surrogate's stacked
-parameters (the reference's ``init_stacked_params`` or a trained bundle's
+``train_state_from_numpy`` takes the reference's training state (the
+parameters and AdamW's ``step``, ``m``, ``v``) to the port's;
+``train_state_tree`` goes back, into the layout both packages' training
+loops checkpoint, and ``load_train_state`` reads such a checkpoint, so a
+run trained by either package resumes in the other.  ``cast_params``
+casts a module's weights to the compute dtype once, in place (serving).
+``surrogate_params_from_numpy`` carries a surrogate's stacked parameters
+(the reference's ``init_stacked_params`` or a trained bundle's
 ``params``) across as tensors.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .ckpt import load_pytree
 from .core.aidg.builder import AIDG
 from .device import DeviceLike, resolve_device
 from .models import lm as _lm
 from .models.config import ModelConfig
 
 __all__ = ["ARRAY_FIELDS", "DICT_FIELDS", "aidg_from_numpy",
-           "lm_params_from_numpy", "cast_params", "SURROGATE_LEAVES",
-           "surrogate_params_from_numpy"]
+           "lm_params_from_numpy", "train_state_from_numpy",
+           "train_state_tree", "load_train_state", "cast_params",
+           "SURROGATE_LEAVES", "surrogate_params_from_numpy"]
 
 # field -> dtype of the port's AIDG
 ARRAY_FIELDS: Dict[str, type] = {
@@ -67,11 +74,20 @@ def aidg_from_numpy(fields: Mapping[str, object]) -> AIDG:
 # ---------------------------------------------------------------------------
 
 
-def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def _to_tensor(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):       # the checkpoint reader's leaves
+        return a.detach().to(device=device, copy=True)
     if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16, as JAX gives it
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
         return t.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
+
+
+def _shape_and_dtype(a) -> Tuple[tuple, str]:
+    if isinstance(a, torch.Tensor):
+        return tuple(a.shape), str(a.dtype).replace("torch.", "")
+    a = np.asarray(a)
+    return tuple(a.shape), a.dtype.name
 
 
 def _numpy_dtype_name(dtype: torch.dtype) -> str:
@@ -86,15 +102,76 @@ def _leaves(tree: Mapping, prefix=()):
             yield prefix + (name,), val
 
 
-def _ref_leaf(tree: Mapping, path, what: str):
+def _skeleton(spec_tree: Mapping) -> Dict:
+    """The nested dicts of ``spec_tree`` without leaves (so empty ones, the
+    non-parametric norms, are kept)."""
+    return {k: _skeleton(v) for k, v in spec_tree.items()
+            if isinstance(v, Mapping)}
+
+
+def _set(dest: Dict, path, value) -> None:
+    for key in path[:-1]:
+        dest = dest.setdefault(key, {})
+    dest[path[-1]] = value
+
+
+def _ref_leaf(tree: Mapping, path, who: str, what: str):
     node: Any = tree
     for key in path:
         try:
             node = node[key]
         except (KeyError, IndexError, TypeError):
-            raise KeyError(f"lm_params_from_numpy: missing leaf {what}") \
-                from None
+            raise KeyError(f"{who}: missing leaf {what}") from None
     return node
+
+
+def _port_layout(cfg: ModelConfig, tree: Mapping, dev: torch.device,
+                 who: str, dtype: Optional[torch.dtype] = None) -> Dict:
+    """The reference's parameter-shaped pytree -> the port's nested layout
+    ({"embed", "layers": [...], ...}) of tensors on ``dev``, every leaf's
+    shape and dtype (the parameter's, or ``dtype``) checked."""
+    P = _lm.pattern_period(cfg)
+    specs = _lm.param_specs(cfg)
+    expected = set()
+
+    def take(dest: Dict, path, ref_path, spec: torch.Tensor, what: str):
+        a = _ref_leaf(tree, ref_path, who, what)
+        shape, name = _shape_and_dtype(a)
+        want = _numpy_dtype_name(dtype or spec.dtype)
+        if shape != tuple(spec.shape) or name != want:
+            raise ValueError(f"{who}: {what} is {name} {shape}, the port "
+                             f"expects {want} {tuple(spec.shape)}")
+        _set(dest, path, _to_tensor(a, dev))
+
+    top = {k: v for k, v in specs.items() if k != "layers"}
+    out = _skeleton(top)
+    for path, spec in _leaves(top):
+        expected.add(("top",) + path)
+        take(out, path, path, spec, "/".join(path))
+    out["layers"] = []
+    for i, layer_spec in enumerate(specs["layers"]):
+        r, pos = divmod(i, P)
+        lt = _skeleton(layer_spec)
+        for path, spec in _leaves(layer_spec):
+            expected.add(("blocks", pos) + path)
+            take(lt, path, ("blocks", pos) + path + (r,), spec,
+                 f"blocks[{pos}]/{'/'.join(path)}[{r}]")
+        out["layers"].append(lt)
+
+    blocks = tree.get("blocks", ())
+    if len(blocks) != P:
+        raise ValueError(f"{who}: {len(blocks)} pattern positions in "
+                         f"blocks, the config has {P}")
+    extra = [f"blocks[{pos}]/{'/'.join(path)}"
+             for pos, blk in enumerate(blocks)
+             for path, _ in _leaves(blk)
+             if ("blocks", pos) + path not in expected]
+    extra += ["/".join(path) for path, _ in _leaves(
+        {k: v for k, v in tree.items() if k != "blocks"})
+        if ("top",) + path not in expected]
+    if extra:
+        raise ValueError(f"{who}: leaves the port does not expect: {extra}")
+    return out
 
 
 def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping,
@@ -106,58 +183,85 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping,
     ``device``.  Layer ``r * P + pos`` takes ``blocks[pos][...][r]``.
     Every leaf's shape and dtype is checked against the port's layout;
     a missing leaf is named, and so is one the port does not expect."""
+    return _lm.LM(cfg, _port_layout(cfg, tree, resolve_device(device),
+                                    "lm_params_from_numpy"))
+
+
+def _flat(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The port's nested layout -> {parameter name: tensor}, named as the
+    ``LM``'s ``named_parameters`` (``layers.3.mix.wq``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, val in tree.items():
+        if isinstance(val, Mapping):
+            out.update(_flat(val, f"{prefix}{name}."))
+        elif isinstance(val, list):
+            for i, sub in enumerate(val):
+                out.update(_flat(sub, f"{prefix}{name}.{i}."))
+        else:
+            out[prefix + name] = val
+    return out
+
+
+def train_state_from_numpy(cfg: ModelConfig, params_tree: Mapping,
+                           opt_tree: Mapping, device: DeviceLike = None
+                           ) -> Tuple["_lm.LM", Dict[str, Any]]:
+    """The reference's training state -> the port's: its parameter pytree
+    (as ``lm_params_from_numpy`` takes it) and its AdamW state
+    ``{"step", "m", "v"}`` (the moments float32 and shaped like the
+    parameters) become the ``LM`` (trainable) and the state
+    ``optim.adamw_init`` shapes: ``{"step": int, "m": {name: tensor},
+    "v": {...}}``, keyed by the ``LM``'s parameter names.  Leaves are
+    numpy arrays or CPU tensors (``ckpt.load_pytree`` gives those)."""
     dev = resolve_device(device)
+    model = _lm.LM(cfg, _port_layout(cfg, params_tree, dev, "params"))
+    state: Dict[str, Any] = {"step": int(np.asarray(opt_tree["step"]))}
+    for k in ("m", "v"):
+        state[k] = _flat(_port_layout(cfg, opt_tree[k], dev, f"opt/{k}",
+                                      dtype=torch.float32))
+    return model, state
+
+
+def train_state_tree(model: "_lm.LM", opt_state: Mapping) -> Dict:
+    """The port's ``LM`` and AdamW state -> the reference's layout of the
+    training state, ``{"params": parameter pytree, "opt": {"step", "m",
+    "v"}}``, as CPU tensors (``step`` int32): what both packages'
+    ``train_loop`` checkpoint, so either resumes the other's run."""
+    cfg = model.cfg
     P = _lm.pattern_period(cfg)
+    R = cfg.n_layers // P
     specs = _lm.param_specs(cfg)
-    expected = set()
 
-    def take(dest: Dict, path, ref_path, spec: torch.Tensor, what: str):
-        a = np.asarray(_ref_leaf(tree, ref_path, what))
-        want = _numpy_dtype_name(spec.dtype)
-        if tuple(a.shape) != tuple(spec.shape) or a.dtype.name != want:
-            raise ValueError(f"lm_params_from_numpy: {what} is {a.dtype.name}"
-                             f" {tuple(a.shape)}, the port expects {want} "
-                             f"{tuple(spec.shape)}")
-        for key in path[:-1]:
-            dest = dest.setdefault(key, {})
-        dest[path[-1]] = _to_tensor(a, dev)
+    def ref_layout(flat: Mapping[str, torch.Tensor]) -> Dict:
+        get = lambda name: flat[name].detach().cpu()  # noqa: E731
+        top = {k: v for k, v in specs.items() if k != "layers"}
+        out = _skeleton(top)
+        for path, _ in _leaves(top):
+            _set(out, path, get(".".join(path)))
+        blocks = []
+        for pos in range(P):
+            blk = _skeleton(specs["layers"][pos])
+            for path, _ in _leaves(specs["layers"][pos]):
+                name = ".".join(path)
+                _set(blk, path, torch.stack(
+                    [get(f"layers.{r * P + pos}.{name}") for r in range(R)]))
+            blocks.append(blk)
+        out["blocks"] = blocks
+        return out
 
-    def skeleton(spec_tree: Mapping) -> Dict:
-        """The nested dicts of ``spec_tree`` without leaves (so empty ones,
-        the non-parametric norms, are kept)."""
-        return {k: skeleton(v) for k, v in spec_tree.items()
-                if isinstance(v, Mapping)}
+    return {"params": ref_layout(dict(model.named_parameters())),
+            "opt": {"step": torch.tensor(opt_state["step"],
+                                         dtype=torch.int32),
+                    "m": ref_layout(opt_state["m"]),
+                    "v": ref_layout(opt_state["v"])}}
 
-    top = {k: v for k, v in specs.items() if k != "layers"}
-    out = skeleton(top)
-    for path, spec in _leaves(top):
-        expected.add(("top",) + path)
-        take(out, path, path, spec, "/".join(path))
-    out["layers"] = []
-    for i, layer_spec in enumerate(specs["layers"]):
-        r, pos = divmod(i, P)
-        lt = skeleton(layer_spec)
-        for path, spec in _leaves(layer_spec):
-            expected.add(("blocks", pos) + path)
-            take(lt, path, ("blocks", pos) + path + (r,), spec,
-                 f"blocks[{pos}]/{'/'.join(path)}[{r}]")
-        out["layers"].append(lt)
 
-    blocks = tree.get("blocks", ())
-    if len(blocks) != P:
-        raise ValueError(f"lm_params_from_numpy: {len(blocks)} pattern "
-                         f"positions in blocks, the config has {P}")
-    extra = [f"blocks[{pos}]/{'/'.join(path)}"
-             for pos, blk in enumerate(blocks)
-             for path, _ in _leaves(blk)
-             if ("blocks", pos) + path not in expected]
-    extra += ["/".join(path) for path, _ in _leaves(
-        {k: v for k, v in tree.items() if k != "blocks"})
-        if ("top",) + path not in expected]
-    if extra:
-        raise ValueError(f"lm_params_from_numpy: leaves the port does not "
-                         f"expect: {extra}")
-    return _lm.LM(cfg, out)
+def load_train_state(cfg: ModelConfig, path, device: DeviceLike = None
+                     ) -> Tuple["_lm.LM", Dict[str, Any]]:
+    """A training checkpoint directory (``step_…/``) that either package's
+    ``train_loop`` wrote -> ``train_state_from_numpy``'s (LM, state); read
+    with numpy and torch alone, bfloat16 leaves included."""
+    tree = load_pytree(path)
+    return train_state_from_numpy(cfg, tree["params"], tree["opt"], device)
 
 
 def cast_params(model: torch.nn.Module, dtype: torch.dtype

@@ -1,0 +1,135 @@
+"""Step builders: train_step / prefill_step / decode_step per config, in
+PyTorch (the port of ``repro.launch.steps``).
+
+Each builder closes over the ``ModelConfig``; the steps take the ``LM``,
+the optimizer state and the batch.  The reference's one ``jax.jit`` per
+step has no counterpart: a step runs eagerly, and its update is in place
+(``optim.adamw_update``), where the reference donates its buffers.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..models import get_model
+from ..models.config import ModelConfig
+from ..models.lm import LM
+from ..optim import AdamWConfig, adamw_init, adamw_update
+
+__all__ = ["cross_entropy", "make_loss_fn", "make_train_step",
+           "make_prefill_step", "make_decode_step", "init_train_state",
+           "abstract_train_state"]
+
+
+def cross_entropy(logits: torch.Tensor, labels) -> torch.Tensor:
+    """Mean next-token negative log-likelihood, the log-softmax in
+    float32."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    labels = torch.as_tensor(labels, dtype=torch.long, device=lp.device)
+    nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
+    return nll.mean()
+
+
+def make_loss_fn(cfg: ModelConfig, remat: bool = True) -> Callable:
+    model = get_model(cfg)
+
+    def loss_fn(params: LM, batch: Dict[str, Any]):
+        logits, aux = model.logits_and_aux(params, batch, remat=remat)
+        if cfg.n_patches:  # VLM: patch prefix carries no LM loss
+            logits = logits[:, cfg.n_patches:]
+        loss = cross_entropy(logits, batch["labels"])
+        return loss + aux, {"loss": loss, "aux": aux}
+
+    return loss_fn
+
+
+def make_train_step(cfg: ModelConfig, opt: Optional[AdamWConfig] = None,
+                    remat: bool = True) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the gradient of the loss (+ MoE aux loss), then one AdamW
+    update of ``params`` and ``opt_state`` in place.  With
+    ``cfg.train_microbatches`` > 1 the batch is split along its first axis
+    and the gradients are accumulated in float32 and averaged, as the
+    reference's scan does; ``loss`` is then the mean over microbatches and
+    the other loss metrics are the last microbatch's."""
+    opt = opt or AdamWConfig()
+    loss_fn = make_loss_fn(cfg, remat=remat)
+    n_micro = max(1, cfg.train_microbatches)
+
+    def grads_of(params: LM, weights: Dict[str, torch.Tensor], batch):
+        with torch.enable_grad():
+            total, metrics = loss_fn(params, batch)
+            grads = torch.autograd.grad(total, list(weights.values()),
+                                        allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(weights.items(), grads)}
+        return total.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            grads
+
+    def train_step(params: LM, opt_state: Dict[str, Any],
+                   batch: Dict[str, Any]):
+        weights = {n: p for n, p in params.named_parameters()
+                   if p.requires_grad}
+        if n_micro == 1:
+            loss, metrics, grads = grads_of(params, weights, batch)
+        else:
+            micro = {k: torch.as_tensor(v).reshape(
+                (n_micro, len(v) // n_micro) + tuple(v.shape[1:]))
+                for k, v in batch.items()}
+            grads, loss = None, 0.0
+            for i in range(n_micro):
+                l, metrics, g = grads_of(
+                    params, weights, {k: v[i] for k, v in micro.items()})
+                if grads is None:
+                    grads = {n: torch.zeros(t.shape, dtype=torch.float32,
+                                            device=t.device)
+                             for n, t in g.items()}
+                for n in weights:
+                    grads[n].add_(g[n])
+                loss = loss + l
+            grads = {n: g / n_micro for n, g in grads.items()}
+            loss = loss / n_micro
+        _, opt_state, opt_metrics = adamw_update(opt, weights, grads,
+                                                 opt_state)
+        metrics = {**metrics, **opt_metrics, "loss": loss}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def init_train_state(cfg: ModelConfig, generator: torch.Generator,
+                     device: DeviceLike = None) -> Tuple[LM, Dict[str, Any]]:
+    """Random parameters (trainable masters) drawn from ``generator`` on
+    its device, moved to ``device`` (default: the generator's), and their
+    AdamW state there."""
+    params = get_model(cfg).init_params(generator)
+    if device is not None:
+        params = params.to(resolve_device(device))
+    return params, adamw_init(dict(params.named_parameters()))
+
+
+def abstract_train_state(cfg: ModelConfig):
+    raise NotImplementedError(
+        "abstract_train_state belongs to the dry run, which is not ported "
+        "to repro_torch yet; see ROADMAP.md, queue A, item 10")
+
+
+def make_prefill_step(cfg: ModelConfig) -> Callable:
+    model = get_model(cfg)
+
+    def prefill_step(params: LM, cache, batch: Dict[str, Any]):
+        return model.prefill(params, batch, cache)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    model = get_model(cfg)
+
+    def decode_step(params: LM, cache, token):
+        return model.decode_step(params, token, cache)
+
+    return decode_step

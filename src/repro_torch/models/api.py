@@ -3,9 +3,13 @@ decoder-only families.
 
 ``Model`` dispatches to ``lm``.  Its entry points that create tensors
 (``init_params``, ``init_cache``) run on ``cuda`` unless the caller passes
-``device="cpu"``; the others run where the parameters are.  Not ported
-yet, and raising ``NotImplementedError``: the encoder-decoder family
-(whisper) and the dry run (``abstract_params``, ``input_specs``).
+``device="cpu"``; the others run where the parameters are.  ``logits`` and
+``logits_and_aux`` are recorded by autograd when grad mode is on and the
+parameters are trainable (training; ``launch.steps``), and run under
+``torch.inference_mode`` otherwise (scoring); ``prefill`` and
+``decode_step`` always run under it.  Not ported yet, and raising
+``NotImplementedError``: the encoder-decoder family (whisper) and the dry
+run (``abstract_params``, ``input_specs``).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from ..device import DeviceLike, resolve_device
 __all__ = ["Model", "get_model", "input_specs", "cell_is_runnable"]
 
 _DRY_RUN = ("the dry run (abstract parameters, input specs) is not ported "
-            "to repro_torch yet; see ROADMAP.md, queue A, item 11")
+            "to repro_torch yet; see ROADMAP.md, queue A, item 10")
 
 
 class Model:

@@ -8,21 +8,39 @@ per layer: ``ln1``, ``mix`` = ``Attention`` or ``Mamba``, ``ln2``, ``ffn``
 reference stacks layers by pattern position; layer ``r * P + pos`` here
 holds the reference's ``blocks[pos][...][r]`` (``P = pattern_period``).
 The functions below take the ``LM`` where the reference takes its
-parameter pytree, and run under ``torch.inference_mode``.
+parameter pytree.  Floating parameters are trainable masters (float32 by
+default).
 
 Entry points:
   init_params(cfg, generator)          random parameters at the reference's
                                        init scales, on the generator's device
-  forward / forward_with_aux           logits of a full pass (scoring)
-  init_cache / prefill / decode_step   serving path with KV/SSM caches
+  forward / forward_with_aux           logits of a full pass: training
+                                       (under autograd) or scoring
+  init_cache / prefill / decode_step   serving path with KV/SSM caches,
+                                       under ``torch.inference_mode``
 
-Weights are cast to the compute dtype on every forward, keeping the
+A full pass records autograd when grad mode is on and a parameter requires
+a gradient; then ``remat`` follows the reference's hierarchical
+rematerialisation: each group of ``cfg.remat_group`` pattern-period
+repeats runs under ``torch.utils.checkpoint`` (non-reentrant), which
+saves the group's input and nothing inside it, and the backward recomputes
+the group (``remat=False``: plain autograd).  Otherwise the pass runs under
+``torch.inference_mode``.  The hand-written kernels have no backward (nor
+have the reference's Pallas kernels): a recorded pass on CUDA tensors with
+the kernel impls raises; on the CPU their plain versions are
+differentiable.
+
+Weights are cast to the compute dtype inside the pass, keeping the
 numerics-critical leaves (``_F32_LEAVES``) in float32, as ``cast_tree``
-does in the reference; ``convert.cast_params`` does that cast once, in
-place, so a forward then copies nothing.  Caches are updated in place
-(see ``layers.attention_block``).  Not ported: MLA attention and the
-encoder-decoder family (ROADMAP.md); the reference's remat, optimisation
-barriers and sharding hints have no effect on a forward pass.
+does in the reference (under remat, once, outside the checkpointed groups,
+as the reference casts outside its scan); ``convert.cast_params`` does
+that cast once, in place, for serving, so a pass then copies nothing.
+Caches are updated in place (see ``layers.attention_block``).  The layer
+output's cotangent is cast to the compute dtype
+(``_grad_to_compute_dtype``), as in the reference.  The reference's
+``_barrier`` (an XLA scheduling hint, the identity) and its sharding hints
+have no counterpart in eager PyTorch.  Not ported: MLA attention and the
+encoder-decoder family (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,6 +50,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from . import layers as L
@@ -86,9 +105,13 @@ def cast_tree(tree: Mapping, dtype: torch.dtype) -> Dict:
 # ---------------------------------------------------------------------------
 
 
+def _parameter(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=t.is_floating_point())
+
+
 class Params(nn.Module):
-    """A module holding a nested dict of tensors as (frozen) parameters and
-    sub-modules, named by the dict's keys."""
+    """A module holding a nested dict of tensors as parameters and
+    sub-modules, named by the dict's keys; floating ones are trainable."""
 
     def __init__(self, tree: Mapping):
         super().__init__()
@@ -96,8 +119,7 @@ class Params(nn.Module):
             if isinstance(val, Mapping):
                 self.add_module(name, Params(val))
             else:
-                self.register_parameter(
-                    name, nn.Parameter(val, requires_grad=False))
+                self.register_parameter(name, _parameter(val))
 
     def tree(self) -> Dict:
         """The parameters as the reference's nested dict of leaves."""
@@ -165,8 +187,7 @@ class LM(nn.Module):
         self.final_norm = Norm(tree["final_norm"])
         for name in ("embed", "unembed", "patch_proj"):
             if name in tree:
-                self.register_parameter(
-                    name, nn.Parameter(tree[name], requires_grad=False))
+                self.register_parameter(name, _parameter(tree[name]))
         if "unembed" not in tree:
             self.unembed = None
 
@@ -249,6 +270,26 @@ def param_specs(cfg: ModelConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 
+class _GradToComputeDtype(torch.autograd.Function):
+    """Identity whose backward casts the cotangent to the primal's dtype
+    (the reference's ``_grad_to_compute_dtype``): float32 cotangents from
+    the float32 statistics (norms, attention scores) do not carry on into
+    the layers below, so inter-layer gradients stay in the compute dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def _grad_to_compute_dtype(x: torch.Tensor) -> torch.Tensor:
+    return _GradToComputeDtype.apply(x) if x.requires_grad else x
+
+
 def _layer_apply(cfg: ModelConfig, kind: str, is_moe: bool, lp: Mapping,
                  x: torch.Tensor, positions: torch.Tensor,
                  cache: Optional[Dict], impl: str, chunk: int,
@@ -262,7 +303,7 @@ def _layer_apply(cfg: ModelConfig, kind: str, is_moe: bool, lp: Mapping,
     else:
         mixed, new_cache = mamba_block(lp["mix"], h, cfg.ssm, cache=cache,
                                        impl=cfg.ssm_impl)
-    x = x + mixed
+    x = _grad_to_compute_dtype(x + mixed)
     if "ffn" not in lp:          # pure-mamba layer (falcon-mamba)
         return x, new_cache, aux
     h = norm(cfg.norm, x, lp["ln2"])
@@ -270,7 +311,7 @@ def _layer_apply(cfg: ModelConfig, kind: str, is_moe: bool, lp: Mapping,
         ff, aux = moe_block(lp["ffn"], h, cfg.moe, activation=cfg.activation)
     else:
         ff = L.mlp_block(lp["ffn"], h, cfg.activation)
-    return x + ff, new_cache, aux
+    return _grad_to_compute_dtype(x + ff), new_cache, aux
 
 
 def _tokens(params: LM, tokens) -> torch.Tensor:
@@ -301,23 +342,69 @@ def _layers(params: LM, dtype: torch.dtype):
         yield layer, cast_tree(layer.tree(), dtype)
 
 
-@torch.inference_mode()
+_KERNEL_IMPLS = {"attn": ("flash_pallas", "flash_pallas_interpret"),
+                 "mamba": ("pallas", "pallas_interpret")}
+
+
 def forward_with_aux(params: LM, cfg: ModelConfig, tokens,
                      patches=None, impl: Optional[str] = None,
                      chunk: int = 1024, remat: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S_text); VLM: patches (B, n_patches, d) prepended.
-    Returns (logits (B, S_total, V), MoE aux loss).  ``remat`` is the
-    reference's training knob and has no effect here."""
+    Returns (logits (B, S_total, V), MoE aux loss).  Recorded by autograd
+    when grad mode is on and a parameter requires a gradient (with
+    ``remat``: checkpointed groups of ``cfg.remat_group`` pattern-period
+    repeats), else run under ``torch.inference_mode``."""
     impl = impl or cfg.attention_impl
+    if not (torch.is_grad_enabled()
+            and any(p.requires_grad for p in params.parameters())):
+        with torch.inference_mode():
+            return _forward(params, cfg, tokens, patches, impl, chunk, None)
+    if params.embed.is_cuda:
+        used = {"attn": impl, "mamba": cfg.ssm_impl}
+        for kind in set(cfg.layer_kinds()):
+            if used[kind] in _KERNEL_IMPLS[kind]:
+                raise NotImplementedError(
+                    f"the {used[kind]!r} kernel has no backward (nor has the "
+                    f"reference's Pallas kernel): a pass recorded by "
+                    f"autograd takes the chunked impls (run scoring under "
+                    f"torch.no_grad or torch.inference_mode)")
+    group = None
+    if remat:
+        group = max(1, cfg.remat_group)
+        repeats = cfg.n_layers // pattern_period(cfg)
+        if repeats % group:
+            raise ValueError(f"remat_group {group} does not divide the "
+                             f"{repeats} pattern-period repeats")
+    return _forward(params, cfg, tokens, patches, impl, chunk, group)
+
+
+def _forward(params: LM, cfg: ModelConfig, tokens, patches, impl: str,
+             chunk: int, group: Optional[int]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pass; ``group``: pattern-period repeats per checkpointed group,
+    or None for no checkpointing."""
     dtype = _dtype(cfg.compute_dtype)
     x = _embed(params, cfg, _tokens(params, tokens), patches, dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, lp in _layers(params, dtype):
-        x, _, a = _layer_apply(cfg, layer.kind, layer.is_moe, lp, x,
-                               positions, None, impl, chunk)
-        aux = aux + a
+
+    def run(layers, x, aux):
+        for layer, lp in layers:
+            x, _, a = _layer_apply(cfg, layer.kind, layer.is_moe, lp, x,
+                                   positions, None, impl, chunk)
+            aux = aux + a
+        return x, aux
+
+    if group is None:
+        x, aux = run(_layers(params, dtype), x, aux)
+    else:
+        layers = list(_layers(params, dtype))   # cast once, outside
+        n = group * pattern_period(cfg)
+        for g0 in range(0, len(layers), n):
+            x, aux = checkpoint(run, layers[g0:g0 + n], x, aux,
+                                use_reentrant=False,
+                                preserve_rng_state=False)
     x = norm(cfg.norm, x, params.final_norm.tree())
     return _unembed(params, x, dtype), aux
 

@@ -1,11 +1,19 @@
-"""Optimizer substrate of the port: AdamW with schedules and global-norm
-clipping over dicts of tensors (the reference's ``optim.adamw``).
+"""Optimizer substrate of the port: AdamW with schedules, global-norm
+clipping, and gradient compression for the cross-pod all-reduce, over
+dicts of tensors (the reference's ``optim``).
 
-The reference's ``optim.schedule`` and ``optim.compress`` (cross-pod
-gradient compression) belong to the LM training substrate and are not
-ported yet (ROADMAP.md, queue A10).
+Master weights stay in the params dtype (float32 by default); the
+schedules are functions of the host-side int step.
 """
 
 from .adamw import AdamWConfig, adamw_init, adamw_update, global_norm
+from .schedule import cosine_schedule, linear_warmup_cosine
+from .compress import (compress_bf16, compress_int8, decompress_int8,
+                       error_feedback_update)
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm"]
+__all__ = [
+    "AdamWConfig", "adamw_init", "adamw_update", "global_norm",
+    "cosine_schedule", "linear_warmup_cosine",
+    "compress_bf16", "compress_int8", "decompress_int8",
+    "error_feedback_update",
+]

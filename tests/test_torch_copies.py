@@ -7,8 +7,9 @@ JAX reference package.
     across unchanged;
 (b) ``DEFAULT_SPACE``, the candidate generators and ``pareto_front`` are
     identical;
-(c) the port imports neither ``jax`` nor ``repro`` (AST scan of every
-    file, and a subprocess that runs a tiny CPU explore);
+(c) the port imports neither ``jax`` nor ``repro`` nor ``ml_dtypes``
+    (AST scan of every file, and a subprocess that runs a tiny CPU
+    explore);
 (d) entry points run on ``cuda`` by default and raise without a card;
 (e) the LM slice: the ten config modules equal the reference's, the
     reference's parameter pytree carries across (``lm_params_from_numpy``)
@@ -20,7 +21,10 @@ JAX reference package.
     stack are array-equal to the reference's;
 (g) the serving slice: the six framework-free ``serve`` modules are the
     reference's files, byte for byte, and ``serve``, ``surrogate`` and
-    ``optim`` run with neither ``jax`` nor ``repro`` loaded.
+    ``optim`` run with neither ``jax`` nor ``repro`` loaded;
+(h) the training slice: ``data`` and ``runtime`` (numpy and threads only)
+    are the reference's files, byte for byte, and ``launch.train`` trains
+    and resumes with neither ``jax`` nor ``repro`` loaded.
 """
 
 import ast
@@ -180,7 +184,7 @@ def _imported_modules(path: Path):
 
 def _forbidden(mod: str) -> bool:
     top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def test_port_files_import_no_jax_and_no_repro():
@@ -188,7 +192,8 @@ def test_port_files_import_no_jax_and_no_repro():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
     scanned = {f.parent.name for f in files}
-    assert {"serve", "surrogate", "optim"} <= scanned, scanned
+    assert {"serve", "surrogate", "optim", "launch", "ckpt", "data",
+            "runtime"} <= scanned, scanned
     bad = {str(f.relative_to(ROOT)): m for f in files
            for m in _imported_modules(f) if _forbidden(m)}
     assert not bad, bad
@@ -291,7 +296,7 @@ def test_lm_params_from_numpy_round_trip():
             for key in parts[1:]:
                 want = want[key]
         assert p.dtype == torch.float32
-        assert np.array_equal(p.numpy(), want), name
+        assert np.array_equal(p.detach().numpy(), want), name
     # the float32 leaves survive a cast, the rest is cast once, in place
     cast_params(model, torch.bfloat16)
     assert model.layers[0].mix.A_log.dtype == torch.float32
@@ -323,7 +328,7 @@ def test_lm_params_from_numpy_checks_leaves():
                            tree)
     model = lm_params_from_numpy(bf_cfg, bf_tree, device="cpu")
     assert model.embed.dtype == torch.bfloat16
-    assert np.array_equal(model.embed.float().numpy(),
+    assert np.array_equal(model.embed.detach().float().numpy(),
                           np.asarray(bf_tree["embed"], np.float32))
 
 
@@ -492,6 +497,41 @@ def test_serve_and_surrogate_run_without_jax_or_repro_loaded():
         "    assert svc.query(workload='gemm').tier == 'surrogate'\n"
         "    assert svc.query(workload='gemm', archs=['oma'],\n"
         "                     top_k=1).cells == ('oma/gemm',)\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+# ---------------------------------------------------------------------------
+# (h) the training slice
+# ---------------------------------------------------------------------------
+
+TRAIN_COPIES = ("data/__init__.py", "data/pipeline.py",
+                "runtime/__init__.py", "runtime/monitor.py")
+
+
+@pytest.mark.parametrize("name", TRAIN_COPIES)
+def test_training_copies_equal_reference(name):
+    ref = ROOT / "src" / "repro" / name
+    port = ROOT / "src" / "repro_torch" / name
+    assert port.read_bytes() == ref.read_bytes()
+
+
+def test_train_runs_without_jax_or_repro_loaded(tmp_path):
+    code = (
+        "import sys\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.launch.train import train_loop\n"
+        "cfg = get_smoke_config('olmoe_1b_7b')\n"
+        f"kw = dict(steps=4, batch=2, seq=16, ckpt_dir={str(tmp_path)!r},\n"
+        "          ckpt_every=2, print_fn=lambda *a: None, device='cpu')\n"
+        "_, a = train_loop(cfg, fail_at_step=-1, **kw)\n"
+        "_, b = train_loop(cfg, **dict(kw, steps=6))\n"
+        "assert [r['step'] for r in b.rows] == [4, 5], b.rows\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -1,8 +1,9 @@
 """Card-only tests of the port: each hand-written kernel (max-plus,
 flash attention, selective scan, systolic GEMM) against its plain PyTorch
 version on the card, the blocked and packed Explorer paths and the
-packed soft gradients, the ``kernels.ops`` wrappers and a small LM
-forward through the kernels.
+packed soft gradients, the ``kernels.ops`` wrappers, a small LM
+forward through the kernels, and training (a train step against the CPU's,
+crash-resume).
 Every test is marked ``cuda`` and skips where no card is present.
 
 This file imports neither ``jax`` nor ``repro``, so it runs on a machine
@@ -522,14 +523,16 @@ def test_lm_forward_on_card_goes_through_the_kernels(card, exact_f32):
         0, cfg.vocab_size, (2, 64))).to(card)
     FA.reset_counts()
     SS.reset_counts()
-    kern = port_lm.forward(params, replace(cfg, attention_impl="flash_pallas",
-                                           ssm_impl="pallas"), toks)
+    with torch.no_grad():       # the kernels have no backward
+        kern = port_lm.forward(params, replace(
+            cfg, attention_impl="flash_pallas", ssm_impl="pallas"), toks)
     assert FA.LAUNCHES["flash_attention"] == 1
     assert SS.LAUNCHES["selective_scan"] == 7
     assert SS.VARIANT_LAUNCHES["ring"] == 7
     assert FA.PLAIN_CALLS["flash_attention"] == 0
     assert SS.PLAIN_CALLS["selective_scan"] == 0
-    plain = port_lm.forward(params, cfg, toks)
+    with torch.no_grad():
+        plain = port_lm.forward(params, cfg, toks)
     torch.testing.assert_close(kern, plain, atol=3e-4, rtol=1e-3)
 
 
@@ -820,3 +823,76 @@ def test_soft_gradients_finite_on_card_at_small_tau(card):
     lo = np.asarray([kn.lo for kn in ex.space.knobs])
     hi = np.asarray([kn.hi for kn in ex.space.knobs])
     assert np.all(theta >= lo - 1e-6) and np.all(theta <= hi + 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# training (autograd through the LM; no kernel on this path)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["olmo_1b", "jamba_v01_52b"])
+def test_train_step_on_card_matches_cpu(card, exact_f32, arch):
+    """One ``make_train_step`` step of a smoke config (float32 compute,
+    jamba with its 8 microbatches) on the card against the same step on
+    the CPU from the same weights: loss and gradient norm within rtol
+    1e-5; the first moments (after one step, the gradient, scaled) within
+    1e-5 of each leaf's largest magnitude, the second (its square) within
+    twice that; parameters within 2 lr of
+    each other element by element (Adam's first step is sign-like, so an
+    element whose gradient lies within rounding of zero may step the other
+    way)."""
+    import copy
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = replace(get_smoke_config(arch), compute_dtype="float32")
+    cpu_model, cpu_state = init_train_state(
+        cfg, torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model).to(card)
+    gpu_state = adamw_init(dict(gpu_model.named_parameters()))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (8, 33))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = AdamWConfig(lr=1e-2)
+    step = make_train_step(cfg, opt)
+    _, cpu_state, cm = step(cpu_model, cpu_state, batch)
+    _, gpu_state, gm = step(gpu_model, gpu_state, batch)
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(gm[key]), float(cm[key]), rtol=1e-5)
+    for (name, c), (_, g) in zip(cpu_model.named_parameters(),
+                                 gpu_model.named_parameters()):
+        d = g.detach().cpu() - c.detach()
+        assert float(d.abs().max()) <= 2 * opt.lr, name
+        for k, tol in (("m", 1e-5), ("v", 2e-5)):
+            want = cpu_state[k][name]
+            got = gpu_state[k][name].cpu()
+            assert float((got - want).abs().max()) <= \
+                tol * float(want.abs().max()), (k, name)
+
+
+def test_crash_resume_on_card_is_exact(card, tmp_path):
+    """``tests/test_train_e2e.py``'s contract on the card: 16 steps
+    straight against a crash at step 12 after the step-8 checkpoint and a
+    restart; step 15's loss within rtol 1e-5."""
+    from repro_torch.launch.train import train_loop
+    cfg = get_smoke_config("olmo_1b")
+    kw = dict(steps=16, batch=4, seq=32, ckpt_every=8,
+              print_fn=lambda *a: None, device=card)
+    _, m_a = train_loop(cfg, ckpt_dir=str(tmp_path / "a"), **kw)
+    with pytest.raises(RuntimeError, match="injected failure"):
+        train_loop(cfg, ckpt_dir=str(tmp_path / "b"), fail_at_step=12, **kw)
+    _, m_b = train_loop(cfg, ckpt_dir=str(tmp_path / "b"), **kw)
+    last_a = [r for r in m_a.rows if r["step"] == 15][0]
+    last_b = [r for r in m_b.rows if r["step"] == 15][0]
+    np.testing.assert_allclose(last_a["loss"], last_b["loss"], rtol=1e-5)
+
+
+def test_recorded_pass_refuses_the_kernels_on_card(card):
+    """The kernels have no backward: a pass recorded by autograd with the
+    kernel impls raises on the card (with autograd off it runs them)."""
+    cfg = replace(get_smoke_config("jamba_v01_52b"),
+                  attention_impl="flash_pallas")
+    params = get_model(cfg).init_params(0, device=card)
+    toks = torch.zeros((1, 16), dtype=torch.long, device=card)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        port_lm.forward(params, cfg, toks)
+    with torch.no_grad():
+        assert torch.isfinite(port_lm.forward(params, cfg, toks)).all()

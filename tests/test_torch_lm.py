@@ -66,7 +66,7 @@ def _one_torch_thread():
 
 def _np(x):
     return np.asarray(x, dtype=np.float32) if not isinstance(
-        x, torch.Tensor) else x.float().numpy()
+        x, torch.Tensor) else x.detach().float().numpy()
 
 
 def _close(port, ref, **tol):
