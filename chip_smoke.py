@@ -184,6 +184,35 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    at published widths, depth cut to 2 layers, ``FAMILY_STEPS`` steps on
    a fixed batch: losses finite and falling, grad norms finite, peak
    memory;
+14. MLA, the encoder-decoder family and the dry run, the four kernels'
+   counters zeroed before each path and read after it: (a) minicpm3-4b
+   at full width and depth (62 layers, d 2560, 40 heads, q_lora 768,
+   kv_lora 256, dn 64, dr 32, dv 64), bf16 weights drawn on the card from
+   seed 3, B 1 x S ``MLA_S``: every MLA block with ``impl="flash_pallas"``
+   against ``chunked`` on the same input (the kernel's attention output
+   within ``FA.bf16_error_bound`` of its plain version on the same q, k,
+   v; the block outputs within the bf16 RMS/max limits), layers 0-3 again
+   in float32 (``FLASH_F32_TOL``, ``MLA_F32_TOL``); the scoring forward
+   and ``lm.prefill`` on the kernel impl, each launching ``cuda_core``
+   once per layer and ``wgmma`` never (Dq 96 != Dv 64); prefill, then
+   ``MLA_GEN`` absorbed decode steps over the compressed cache (no
+   launch), the greedy tokens against a chunked bf16 scoring pass over
+   the same sequence (a token may differ only at a near-tie of the
+   float32 logits; the decode's logits as near the float32 ones as the
+   scoring pass's, ``BF16_PARITY``), ms/token, the compressed cache's
+   bytes beside an expanded one's; 3 ``train_loop`` steps at 2 layers,
+   finite, no launch; (b) whisper-small at full width and depth (12 + 12
+   layers, d 768, 1500 frames): float32 ``Model.logits`` against prefill
+   + 32 teacher-forced decode steps (``LOGITS_TOL``), bf16 encode,
+   prefill and decode times, 3 ``train_loop`` steps with zero frames, no
+   launch; (c) B2 at MLA's prefill shape (40 heads, S 2048, Dq 96, Dv 64,
+   bf16, causal): the kernel, its plain version and
+   ``scaled_dot_product_attention`` (default dispatch, and each backend
+   alone or why it refused), CUDA events and device time, beside the
+   bound; (d) ``launch.steps.abstract_train_state`` of all 10 archs on
+   the ``meta`` device: parameter counts (less the leaves
+   ``UNCOUNTED_LEAVES``, equal to ``cfg.n_params()``), training-state
+   bytes, no CUDA byte allocated and host memory grown by < 256 MiB;
 
 each phase's time and the whole script's, then one ``{"kernels": [...]}``
 line, the card line again, and as the last line ``{"ok": true, "device":
@@ -194,6 +223,7 @@ one card; without one it exits non-zero before printing any result.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -309,6 +339,27 @@ RESUME_RTOL = 1e-5     # tests/test_train_e2e.py
 FAMILY_ARCHS = ("olmoe_1b_7b", "falcon_mamba_7b")
 FAMILY_B, FAMILY_S = 2, 1024
 FAMILY_STEPS = 5
+
+# -- MLA, the enc-dec family and the dry run (phase 14) -----------------------
+MLA_ARCH = "minicpm3_4b"
+MLA_S = 2048           # B 1: scoring, prompt + generation, B2's timing
+MLA_GEN = 32           # absorbed decode steps after a prompt of MLA_S - 32
+MLA_F32_LAYERS = 4     # layers 0-3 checked again in float32
+MLA_F32_TOL = (3e-4, 1e-3)
+MLA_TRAIN_LAYERS = 2
+MLA_TRAIN_B, MLA_TRAIN_S = 8, 512   # the config's 8 microbatches of 1
+# a greedy token of the decode may differ from the scoring pass's only at a
+# near-tie: the two tokens' float32 logits within this many times the RMS
+# distance of the bf16 scoring logits from the float32 ones at that position
+NEAR_TIE = 4.0
+WHISPER_ARCH = "whisper_small"
+WHISPER_B, WHISPER_PROMPT, WHISPER_GEN = 2, 32, 32
+WHISPER_TRAIN_B, WHISPER_TRAIN_S = 4, 128   # the config's 4 microbatches
+TRAIN_CHECK_STEPS = 3
+# leaves that ModelConfig.n_params() does not count: norm scales and
+# biases, the mamba conv bias, position tables, the VLM patch projection
+UNCOUNTED_LEAVES = ("scale", "bias", "conv_b", "enc_pos", "dec_pos",
+                    "patch_proj")
 
 # θ = 1 cycles of the 10 default cells, pinned in the reference's tests
 GOLDEN_THETA1_CYCLES = {
@@ -2411,6 +2462,502 @@ def train_phase(modules, dev) -> None:
           f"{counts}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: MLA (minicpm3-4b), the enc-dec family (whisper-small), the dry run
+# ---------------------------------------------------------------------------
+
+
+class FlashSpy:
+    """Records the inputs and output of every ``flash_attention`` call made
+    through the kernel module while active (``layers._attend`` looks the
+    function up at call time)."""
+
+    def __init__(self, FA):
+        self.FA, self.real, self.calls = FA, FA.flash_attention, []
+
+    def __enter__(self):
+        def spy(q, k, v, **kw):
+            out = self.real(q, k, v, **kw)
+            self.calls.append((q, k, v, out, kw))
+            return out
+
+        self.FA.flash_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.FA.flash_attention = self.real
+
+
+def mla_blocks(FA, params, cfg, toks, dtype, n_layers=None) -> None:
+    """Each MLA block with ``impl="flash_pallas"`` against ``chunked`` on
+    the same input (the chunked path's activations at that layer): the
+    kernel's attention output against its plain version on the same q, k,
+    v (bf16: within ``FA.bf16_error_bound``; float32: ``FLASH_F32_TOL``),
+    and the block outputs (bf16: RMS of kernel - chunked within 2^-7 of the
+    chunked output's RMS, the largest within 2^-6 of its largest, as
+    ``bf16_agreement``; float32: ``MLA_F32_TOL``)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    rms = lambda t: float(t.float().square().mean().sqrt())  # noqa: E731
+    x = lm._embed(params, cfg, toks, None, dtype)
+    pos = torch.arange(x.shape[1], device=x.device)[None]
+    worst_attn, worst_block = 0.0, 0.0
+    layers = itertools.islice(lm._layers(params, dtype), n_layers)
+    with FlashSpy(FA) as spy:
+        for i, (layer, lp) in enumerate(layers):
+            h = L.norm(cfg.norm, x, lp["ln1"])
+            kern = L.mla_block(lp["mix"], h, cfg.attention, positions=pos,
+                               impl="flash_pallas")[0]
+            plain = L.mla_block(lp["mix"], h, cfg.attention, positions=pos,
+                                impl="chunked")[0]
+            q, k, v, out, kw = spy.calls.pop()
+            want = FA.flash_attention_torch(q, k, v, **kw)
+            if dtype == torch.bfloat16:
+                bnd = FA.bf16_error_bound(q, k, v, **kw)
+                attn = float(((out.float() - want.float()).abs()
+                              / bnd).max())
+                d = kern.float() - plain.float()
+                block = max(rms(d) / rms(plain) / 2.0 ** -7,
+                            float(d.abs().max() / plain.float().abs().max())
+                            / 2.0 ** -6)
+                del bnd, d
+            else:
+                err, bad = within(out, want, FLASH_F32_TOL)
+                attn = float(bad)
+                err, bad = within(kern, plain, MLA_F32_TOL)
+                block = float(bad)
+            check(attn <= (1.0 if dtype == torch.bfloat16 else 0.0),
+                  f"MLA layer {i} ({dtype}): kernel attention vs plain at "
+                  f"{attn}")
+            check(block <= (1.0 if dtype == torch.bfloat16 else 0.0),
+                  f"MLA layer {i} ({dtype}): block kernel vs chunked at "
+                  f"{block}")
+            worst_attn, worst_block = max(worst_attn, attn), max(worst_block,
+                                                                  block)
+            del q, k, v, out, want, kern, plain
+            x = lm._layer_apply(cfg, layer.kind, layer.is_moe, lp, x, pos,
+                                None, "chunked", 1024)[0]
+    if dtype == torch.bfloat16:
+        print(f"MLA blocks 0-{i}, bf16, S {toks.shape[1]}: "
+              f"flash_pallas vs chunked on the same input; kernel attention "
+              f"vs plain at most {worst_attn:.3f} of FA.bf16_error_bound, "
+              f"block outputs at most {worst_block:.3f} of the RMS/max "
+              f"limits", flush=True)
+    else:
+        print(f"MLA blocks 0-{i}, float32: kernel attention "
+              f"within {FLASH_F32_TOL} of plain, block outputs within "
+              f"{MLA_F32_TOL} of chunked, in every layer", flush=True)
+
+
+def greedy_parity(dec_logits, bf16_logits, f32_logits) -> str:
+    """The decode's greedy tokens against the bf16 scoring pass's argmax
+    over the same sequence: a token may differ only at a near-tie (both
+    tokens' float32 logits within ``NEAR_TIE`` x the position's RMS
+    distance of the bf16 scoring logits from the float32 ones); the
+    decode's logits as near the float32 logits as the scoring pass's
+    (RMS within ``BF16_PARITY``).  Logits (N, V), one row a position."""
+    rms = lambda t: float(t.float().square().mean().sqrt())  # noqa: E731
+    dec, ref, f32 = (t.float() for t in (dec_logits, bf16_logits,
+                                         f32_logits))
+    g_dec, g_ref, g_f32 = dec.argmax(-1), ref.argmax(-1), f32.argmax(-1)
+    diff = (g_dec != g_ref).nonzero().flatten().tolist()
+    for i in diff:
+        margin = float((f32[i, g_dec[i]] - f32[i, g_ref[i]]).abs())
+        noise = rms(ref[i] - f32[i])
+        check(margin <= NEAR_TIE * noise,
+              f"greedy token {i}: decode {int(g_dec[i])}, scoring "
+              f"{int(g_ref[i])}, float32 margin {margin:.3e} > {NEAR_TIE} x "
+              f"{noise:.3e}")
+    err_d, err_s = rms(dec - f32), rms(ref - f32)
+    check(err_d <= BF16_PARITY * err_s,
+          f"decode logits {err_d:.4e} from float32, more than "
+          f"{BF16_PARITY} x the scoring pass's {err_s:.4e}")
+    return (f"{len(diff)} of {len(g_dec)} greedy tokens differ from the bf16 "
+            f"scoring pass's (each at a near-tie); the scoring pass differs "
+            f"from float32 in {int((g_ref != g_f32).sum())}; RMS distance from "
+            f"the float32 logits: decode {err_d:.4e}, scoring {err_s:.4e} "
+            f"(ratio {err_d / err_s:.3f}, limit {BF16_PARITY})")
+
+
+def check_losses(label: str, metrics, secs) -> None:
+    losses = [r["loss"] for r in metrics.rows]
+    norms = [r["grad_norm"] for r in metrics.rows]
+    check(len(losses) == TRAIN_CHECK_STEPS
+          and all(map(math.isfinite, losses + norms)),
+          f"{label}: losses {losses}, grad norms {norms}")
+    print(f"{label}: {TRAIN_CHECK_STEPS} steps of train_loop in {secs:.1f} s,"
+          f" losses {fmt(losses)}, grad norms {fmt(norms)}", flush=True)
+
+
+def minicpm3_phase(FA, dev) -> int:
+    """14 (a): minicpm3-4b at full width and depth in bf16.  Returns the
+    flash kernel's launches on its path (scoring + prefill)."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import get_model
+    from repro_torch.models import lm
+    base = get_config(MLA_ARCH)
+    a = base.attention
+    dq, dv = a.qk_nope_head_dim + a.qk_rope_head_dim, a.v_head_dim
+    cfg = replace(base, param_dtype="bfloat16")
+    kern_cfg = replace(cfg, attention_impl="flash_pallas")
+    model = get_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = model.init_params(3, device=dev)
+    params.requires_grad_(False)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    gen = torch.Generator(device=dev).manual_seed(4)
+    toks = torch.randint(0, base.vocab_size, (1, MLA_S), generator=gen,
+                         device=dev)
+    variant = FA.plan(dq, dv, torch.bfloat16, True)
+    print(f"{MLA_ARCH} at full width and depth: {base.n_layers} layers, d "
+          f"{base.d_model}, {a.n_heads} heads, q_lora {a.q_lora_rank}, "
+          f"kv_lora {a.kv_lora_rank}, dn {a.qk_nope_head_dim}, dr "
+          f"{a.qk_rope_head_dim}, dv {dv}, {n / 1e9:.3f} G parameters, bf16,"
+          f" from seed 3 on the card in {time.perf_counter() - t:.1f} s; "
+          f"flash plan at Dq {dq}, Dv {dv}, bf16: {variant}", flush=True)
+    check(variant == "cuda_core", f"MLA's flash plan is {variant}")
+
+    # per block, bf16 at full depth, then float32 on layers 0-3
+    with torch.no_grad():
+        mla_blocks(FA, params, cfg, toks, torch.bfloat16)
+        mla_blocks(FA, params, replace(cfg, compute_dtype="float32"), toks,
+                   torch.float32, MLA_F32_LAYERS)
+
+    # the scoring forward and the prefill on the kernel impl
+    FA.reset_counts()
+    with torch.no_grad():
+        t = time.perf_counter()
+        kern = lm.forward(params, kern_cfg, toks)
+        torch.cuda.synchronize()
+        kern_s = time.perf_counter() - t
+        score = dict(FA.VARIANT_LAUNCHES, plain=FA.PLAIN_CALLS[
+            "flash_attention"])
+        t = time.perf_counter()
+        plain = lm.forward(params, cfg, toks)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+    want = {"wgmma": 0, "cuda_core": base.n_layers, "mma_sync": 0,
+            "plain": 0}
+    check(score == want, f"scoring forward: launches {score}, want {want}")
+    check(bool(torch.isfinite(kern).all()), "minicpm3 scoring logits finite")
+    d = (kern.float() - plain.float())
+    print(f"scoring forward B 1 S {MLA_S}: kernel impl {kern_s:.3f} s, "
+          f"chunked {plain_s:.3f} s; launches {score}; logits kernel vs "
+          f"chunked RMS {float(d.square().mean().sqrt()):.3e}, max "
+          f"{float(d.abs().max()):.3e} (max |logit| "
+          f"{float(plain.float().abs().max()):.3e})", flush=True)
+    del kern, d
+
+    # prefill (kernel impl), then absorbed decode steps
+    prompt = MLA_S - MLA_GEN
+    FA.reset_counts()
+    with torch.no_grad():
+        cache = model.init_cache(1, MLA_S, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = lm.prefill(params, cfg, toks[:, :prompt], cache,
+                               impl="flash_pallas")
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        pre = dict(FA.VARIANT_LAUNCHES, plain=FA.PLAIN_CALLS[
+            "flash_attention"])
+        outs, tok = [lg[:, -1]], lg[:, -1].argmax(-1)[:, None]
+        gen_toks = [tok]
+        t = time.perf_counter()
+        for _ in range(MLA_GEN):
+            lg, cache = model.decode_step(params, tok, cache)
+            tok = lg[:, -1].argmax(-1)[:, None]
+            outs.append(lg[:, -1])
+            gen_toks.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+        check(dict(FA.VARIANT_LAUNCHES, plain=FA.PLAIN_CALLS[
+            "flash_attention"]) == pre == dict(want, cuda_core=base.n_layers),
+              f"prefill and decode: launches {pre} (decode must launch "
+              f"nothing)")
+        cache_b = sum(c[k].numel() * c[k].element_size() for c in cache
+                      for k in ("c_kv", "k_rope"))
+        expanded_b = (base.n_layers * MLA_S * a.n_heads * (dq + dv)
+                      * cache[0]["c_kv"].element_size())
+        del cache
+        seq = torch.cat([toks[:, :prompt]] + gen_toks[:-1], dim=1)
+        scored = lm.forward(params, cfg, seq)[0, prompt - 1:]
+        params32 = copy.deepcopy(params).float()
+        f32 = lm.forward(params32, replace(base, compute_dtype="float32"),
+                         seq)[0, prompt - 1:]
+        del params32
+    parity = greedy_parity(torch.cat(outs), scored, f32)
+    print(f"generation: prefill {prompt} tokens (flash_pallas) "
+          f"{1e3 * prefill_s:.1f} ms, {MLA_GEN} absorbed decode steps "
+          f"{1e3 * decode_s / MLA_GEN:.2f} ms/token; launches {pre}; {parity}"
+          f"; compressed cache {cache_b / 2**20:.1f} MiB, an expanded "
+          f"per-head k/v cache {expanded_b / 2**20:.1f} MiB "
+          f"({expanded_b / cache_b:.1f}x); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del params, plain, scored, f32, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training at 2 layers through train_loop: no kernel
+    FA.reset_counts()
+    t = time.perf_counter()
+    _, metrics = train_loop(replace(base, n_layers=MLA_TRAIN_LAYERS),
+                            steps=TRAIN_CHECK_STEPS, batch=MLA_TRAIN_B,
+                            seq=MLA_TRAIN_S, print_fn=lambda *a: None,
+                            device=dev)
+    check_losses(f"{MLA_ARCH} full width, {MLA_TRAIN_LAYERS} layers, B "
+                 f"{MLA_TRAIN_B} x S {MLA_TRAIN_S}", metrics,
+                 time.perf_counter() - t)
+    check(FA.LAUNCHES["flash_attention"] + FA.PLAIN_CALLS[
+        "flash_attention"] == 0, "training launched flash attention")
+    return score["cuda_core"] + pre["cuda_core"]
+
+
+def whisper_phase(FA, dev) -> None:
+    """14 (b): whisper-small at full width and depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import cast_params
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import encdec, get_model
+    base = get_config(WHISPER_ARCH)
+    cfg32 = replace(base, compute_dtype="float32")
+    model = get_model(cfg32)
+    FA.reset_counts()
+    params = model.init_params(5, device=dev)
+    params.requires_grad_(False)
+    n = sum(p.numel() for p in params.parameters())
+    gen = torch.Generator(device=dev).manual_seed(6)
+    e = base.enc_dec
+    frames = torch.randn((WHISPER_B, e.encoder_len, base.d_model),
+                         generator=gen, device=dev)
+    total = WHISPER_PROMPT + WHISPER_GEN
+    toks = torch.randint(0, base.vocab_size, (WHISPER_B, total),
+                         generator=gen, device=dev)
+    with torch.no_grad():
+        full = model.logits(params, {"tokens": toks, "frames": frames})
+        cache = model.init_cache(WHISPER_B, total, device=dev)
+        lg, cache = model.prefill(
+            params, {"tokens": toks[:, :WHISPER_PROMPT], "frames": frames},
+            cache)
+        steps = [lg[:, 0]]
+        for i in range(WHISPER_PROMPT, total):
+            lg, cache = model.decode_step(params, toks[:, i:i + 1], cache)
+            steps.append(lg[:, 0])
+    got = torch.stack(steps, dim=1)
+    err, bad = within(got, full[:, WHISPER_PROMPT - 1:], LOGITS_TOL)
+    print(f"{WHISPER_ARCH} at full width and depth: {e.n_encoder_layers} + "
+          f"{base.n_layers} layers, d {base.d_model}, {e.encoder_len} frames,"
+          f" {n / 1e6:.1f} M parameters; float32, B {WHISPER_B}: "
+          f"Model.logits over {total} tokens against prefill "
+          f"({WHISPER_PROMPT}) + {WHISPER_GEN} teacher-forced decode "
+          f"steps, max |diff| {err:.3e}, {bad} outside atol/rtol "
+          f"{LOGITS_TOL}", flush=True)
+    check(bad == 0 and bool(torch.isfinite(full).all()),
+          f"whisper decode vs logits: {bad} outside {LOGITS_TOL}")
+    del full, cache, got, steps
+
+    # bf16 serving times
+    cast_params(params, torch.bfloat16)
+    model = get_model(base)
+    with torch.no_grad():
+        enc_ms = cuda_ms(lambda: encdec.encode(params, base, frames), 5)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cache = model.init_cache(WHISPER_B, total, device=dev)
+        lg, cache = model.prefill(
+            params, {"tokens": toks[:, :WHISPER_PROMPT], "frames": frames},
+            cache)
+        tok = lg[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        t = time.perf_counter()
+        for _ in range(WHISPER_GEN):
+            lg, cache = model.decode_step(params, tok, cache)
+            tok = lg[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+    check(bool(torch.isfinite(lg).all()), "whisper bf16 logits finite")
+    print(f"{WHISPER_ARCH} bf16, B {WHISPER_B}: encode {enc_ms:.2f} ms (CUDA "
+          f"events), prefill (encode + {WHISPER_PROMPT} tokens) "
+          f"{1e3 * prefill_s:.1f} ms, {WHISPER_GEN} decode steps "
+          f"{1e3 * decode_s / WHISPER_GEN:.2f} ms/token", flush=True)
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    _, metrics = train_loop(base, steps=TRAIN_CHECK_STEPS,
+                            batch=WHISPER_TRAIN_B, seq=WHISPER_TRAIN_S,
+                            print_fn=lambda *a: None, device=dev)
+    check_losses(f"{WHISPER_ARCH} full width and depth, B {WHISPER_TRAIN_B} "
+                 f"x S {WHISPER_TRAIN_S}", metrics, time.perf_counter() - t)
+    check(FA.LAUNCHES["flash_attention"] + FA.PLAIN_CALLS[
+        "flash_attention"] == 0, "the whisper path ran flash attention")
+
+
+def sdpa_attempt(fn):
+    """``fn()``, or the reason PyTorch's attention refused: the warnings
+    it gave (each backend says why it declined), else the error."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            return fn()
+        except RuntimeError as e:
+            why = [str(w.message).split(" (Triggered")[0] for w in caught]
+            return "refused: " + ("; ".join(why) or str(e).splitlines()[0])
+
+
+def mla_flash_timing(FA, dev) -> dict:
+    """14 (c): B2 at MLA's prefill shape, bf16, causal: the kernel, its
+    plain version and ``scaled_dot_product_attention`` (default dispatch,
+    then each backend alone), CUDA events and device time (CUDA-graph
+    replay), beside the bound."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.configs import get_config
+    a = get_config(MLA_ARCH).attention
+    h, dq, dv = a.n_heads, a.qk_nope_head_dim + a.qk_rope_head_dim, \
+        a.v_head_dim
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16) for shape in ((h, MLA_S, dq), (h, MLA_S, dq),
+                                      (h, MLA_S, dv)))
+    before = dict(FA.VARIANT_LAUNCHES)
+    out = FA.flash_attention(q, k, v, causal=True)
+    ran = [n for n in FA.VARIANTS if FA.VARIANT_LAUNCHES[n] != before[n]]
+    check(ran == ["cuda_core"], f"B2 at MLA's shape ran {ran}")
+    want = FA.flash_attention_torch(q, k, v, causal=True)
+    diff = (out.float() - want.float()).abs()
+    worst = float((diff / FA.bf16_error_bound(q, k, v, causal=True)).max())
+    err = float(diff.max())
+    check(worst <= 1.0, f"B2 at MLA's shape: {worst} of the bf16 bound")
+    del out, want, diff
+    kernel = lambda: FA.flash_attention(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: FA.flash_attention_torch(q, k, v,  # noqa: E731
+                                             causal=True)
+    ms, dev_ms = cuda_ms(kernel, 20), graph_ms([kernel], 20)
+    plain_ms, plain_dev_ms = cuda_ms(plain, 3), graph_ms([plain], 3)
+    q4, k4, v4 = (t[None] for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, k4, v4, is_causal=True)
+    backends = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        if not hasattr(SDPBackend, name):
+            backends[name] = "not in this PyTorch"
+            continue
+        with sdpa_kernel([getattr(SDPBackend, name)]):
+            backends[name] = sdpa_attempt(lambda: f"{cuda_ms(sdpa, 5):.4f} ms")
+    lib_ms = lib_dev_ms = None
+    refusal = sdpa_attempt(lambda: None)
+    if refusal is None:
+        lib_ms, lib_dev_ms = cuda_ms(sdpa, 20), graph_ms([sdpa], 20)
+    else:
+        backends["default"] = refusal
+    bms, by = flash_bound(q, k, v, causal=True)
+    lib = ("refused" if lib_ms is None else
+           f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f}; kernel / SDPA "
+           f"{ms / lib_ms:.2f})")
+    print(f"flash_attention at MLA's prefill shape (BH {h}, S {MLA_S}, Dq "
+          f"{dq}, Dv {dv}, bf16, causal) [cuda_core]: kernel {ms:.4f} ms "
+          f"(device {dev_ms:.4f}; {100 * bms / ms:.1f}% of bound {bms:.4f} "
+          f"ms, {by}); plain {plain_ms:.3f} ms (device {plain_dev_ms:.3f}); "
+          f"scaled_dot_product_attention default {lib}; by backend "
+          f"{backends}; max |kernel - plain| {err:.3e} ({worst:.3f} of the "
+          f"bf16 bound)", flush=True)
+    return dict(label="MLA prefill shape", shape=[h, MLA_S, dq, dv, h],
+                variant="cuda_core", ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, plain_device_ms=plain_dev_ms,
+                library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                sdpa_backends=backends, bound_ms=bms, bound_by=by,
+                max_abs_err=err, err_over_bound=worst)
+
+
+def leaf_items(tree, prefix=()):
+    """(path, tensor) over nested dicts, lists and tuples."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, val in items:
+        if isinstance(val, (dict, list, tuple)):
+            yield from leaf_items(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * 4096
+
+
+def dry_run_phase() -> None:
+    """14 (d): ``abstract_train_state`` of every arch on the meta device:
+    parameter counts (less the leaves ``n_params`` leaves out, equal to
+    ``cfg.n_params()``), training-state bytes, and no memory taken."""
+    from repro_torch.configs import all_arch_ids, get_config
+    from repro_torch.launch.steps import abstract_train_state
+    torch.cuda.synchronize()
+    cuda0, rss0 = torch.cuda.memory_allocated(), rss_bytes()
+    t = time.perf_counter()
+    lines = []
+    for arch in all_arch_ids():
+        cfg = get_config(arch)
+        params, opt = abstract_train_state(cfg)
+        leaves = list(leaf_items(params))
+        state = [x for _, x in leaves] + [x for _, x in leaf_items(opt)]
+        check(all(x.is_meta for x in state), f"{arch}: a leaf not on meta")
+        n = sum(x.numel() for _, x in leaves)
+        extra = sum(x.numel() for path, x in leaves
+                    if path[-1] in UNCOUNTED_LEAVES)
+        check(n - extra == cfg.n_params(),
+              f"{arch}: {n} parameters, {extra} uncounted, n_params "
+              f"{cfg.n_params()}")
+        nbytes = sum(x.numel() * x.element_size() for x in state)
+        lines.append(f"{arch} {n / 1e9:.3f} G ({n - extra} = n_params, + "
+                     f"{extra}) {nbytes / 2**30:.1f} GiB")
+    secs = time.perf_counter() - t
+    torch.cuda.synchronize()
+    grew = (torch.cuda.memory_allocated() - cuda0, rss_bytes() - rss0)
+    print(f"dry run, abstract_train_state of {len(lines)} archs on meta in "
+          f"{secs:.2f} s (parameters; training state: parameters + AdamW "
+          f"m, v): {'; '.join(lines)}; CUDA memory grew {grew[0]} B, host "
+          f"resident memory {grew[1] / 2**20:.1f} MiB", flush=True)
+    check(grew[0] == 0 and grew[1] < 256 * 2**20,
+          f"the dry run allocated: CUDA {grew[0]} B, host {grew[1]} B")
+
+
+def mla_phase(modules, dev) -> tuple:
+    """Phase 14: (a) minicpm3-4b, (b) whisper-small, (c) B2 at MLA's shape,
+    (d) the dry run.  Returns (B2's case at MLA's shape, the flash kernel's
+    launches on the minicpm3 path); the counters are zeroed before each
+    path and read after it."""
+    FA = modules[1]
+    for mod in modules:
+        mod.reset_counts()
+    lap = lap_clock()
+    launches = minicpm3_phase(FA, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("(a) minicpm3-4b")
+    whisper_phase(FA, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("(b) whisper-small")
+    case = mla_flash_timing(FA, dev)
+    torch.cuda.empty_cache()
+    lap("(c) B2 at MLA's shape")
+    dry_run_phase()
+    lap("(d) the dry run")
+    others = {f"{kind}{k}": v for mod in modules if mod is not FA
+              for kind, d in (("", mod.LAUNCHES), ("plain ", mod.PLAIN_CALLS))
+              for k, v in d.items()}
+    check(sum(others.values()) == 0, f"other kernels ran in phase 14: "
+                                     f"{others}")
+    return case, launches
+
+
 # what a kernel's row may carry beside the contract's keys (the chosen
 # kernel of the GEMM, flash attention and the scan, the scan's plan, device
 # times, the mma.sync kernels' and the PR 12 scan kernel's times, every
@@ -2419,7 +2966,7 @@ def train_phase(modules, dev) -> None:
 EXTRA_KEYS = ("variant", "plan", "launch_ms", "device_ms",
               "library_device_ms", "old_kernel_ms", "old_kernel_device_ms",
               "pr12_ms", "pr12_device_ms", "cases", "full_mode_ms",
-              "dense_bound_ms", "old_path_ms")
+              "dense_bound_ms", "old_path_ms", "launches_by_path")
 
 
 def main() -> int:
@@ -2612,6 +3159,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("13 (training)")
+
+    # -- 14. MLA, whisper, the dry run ---------------------------------------
+    case, mla_launches = mla_phase((K, FA, SS, SG), dev)
+    flash = rows["flash_attention"]
+    flash["cases"].append(case)
+    flash["launches_by_path"] = {
+        "jamba-v0.1 layers 0-7 (phases 7-8)": launches["flash_attention"],
+        "minicpm3-4b (phase 14)": mla_launches}
+    launches["flash_attention"] += mla_launches
+    phase_done("14 (MLA, whisper, the dry run)")
     print(f"-- the whole script took {time.perf_counter() - start:.1f} s",
           flush=True)
 

@@ -6,7 +6,8 @@ graph the evaluators run on.  ``aidg_from_numpy`` rebuilds the port's
 instance the reference package's — so one graph can be fed to both.
 
 ``lm_params_from_numpy`` does the same for an LM: it takes the reference's
-parameter pytree as numpy arrays and returns the port's ``LM`` module.
+parameter pytree as numpy arrays and returns the port's ``LM`` module (an
+``EncDec`` for the encoder-decoder family).
 ``train_state_from_numpy`` takes the reference's training state (the
 parameters and AdamW's ``step``, ``m``, ``v``) to the port's;
 ``train_state_tree`` goes back, into the layout both packages' training
@@ -28,6 +29,7 @@ import torch
 from .ckpt import load_pytree
 from .core.aidg.builder import AIDG
 from .device import DeviceLike, resolve_device
+from .models import encdec as _ed
 from .models import lm as _lm
 from .models.config import ModelConfig
 
@@ -125,16 +127,46 @@ def _ref_leaf(tree: Mapping, path, who: str, what: str):
     return node
 
 
+def _ref_leaves(tree, prefix=()):
+    """(path, leaf) over a reference pytree of dicts, lists and tuples
+    (sequence indices are ints in the path)."""
+    items = tree.items() if isinstance(tree, Mapping) else enumerate(tree)
+    for key, val in items:
+        if isinstance(val, (Mapping, list, tuple)):
+            yield from _ref_leaves(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def _name(path) -> str:
+    """A reference path as text: ``blocks[0]/mix/wq[3]``."""
+    out = ""
+    for key in path:
+        out += f"[{key}]" if isinstance(key, int) else (
+            f"/{key}" if out else key)
+    return out
+
+
+def _family(cfg: ModelConfig):
+    """(the port's layout as ``meta`` tensors, where the reference stacks
+    each layer list, the module class) of ``cfg``'s family."""
+    if cfg.enc_dec is not None:
+        return (_ed.param_specs_encdec(cfg), _ed.stacks_encdec(cfg),
+                _ed.EncDec)
+    return _lm.param_specs(cfg), _lm.stacks(cfg), _lm.LM
+
+
 def _port_layout(cfg: ModelConfig, tree: Mapping, dev: torch.device,
                  who: str, dtype: Optional[torch.dtype] = None) -> Dict:
     """The reference's parameter-shaped pytree -> the port's nested layout
-    ({"embed", "layers": [...], ...}) of tensors on ``dev``, every leaf's
-    shape and dtype (the parameter's, or ``dtype``) checked."""
-    P = _lm.pattern_period(cfg)
-    specs = _lm.param_specs(cfg)
+    (``{"embed", "layers": [...], ...}``, or the enc-dec's) of tensors on
+    ``dev``, every leaf's shape and dtype (the parameter's, or ``dtype``)
+    checked."""
+    specs, stack_list, _ = _family(cfg)
     expected = set()
 
-    def take(dest: Dict, path, ref_path, spec: torch.Tensor, what: str):
+    def take(dest: Dict, path, ref_path, spec: torch.Tensor):
+        what = _name(ref_path)
         a = _ref_leaf(tree, ref_path, who, what)
         shape, name = _shape_and_dtype(a)
         want = _numpy_dtype_name(dtype or spec.dtype)
@@ -143,53 +175,58 @@ def _port_layout(cfg: ModelConfig, tree: Mapping, dev: torch.device,
                              f"expects {want} {tuple(spec.shape)}")
         _set(dest, path, _to_tensor(a, dev))
 
-    top = {k: v for k, v in specs.items() if k != "layers"}
+    top = {k: v for k, v in specs.items() if k not in dict(stack_list)}
     out = _skeleton(top)
     for path, spec in _leaves(top):
-        expected.add(("top",) + path)
-        take(out, path, path, spec, "/".join(path))
-    out["layers"] = []
-    for i, layer_spec in enumerate(specs["layers"]):
-        r, pos = divmod(i, P)
-        lt = _skeleton(layer_spec)
-        for path, spec in _leaves(layer_spec):
-            expected.add(("blocks", pos) + path)
-            take(lt, path, ("blocks", pos) + path + (r,), spec,
-                 f"blocks[{pos}]/{'/'.join(path)}[{r}]")
-        out["layers"].append(lt)
+        expected.add(path)
+        take(out, path, path, spec)
+    positions: Dict[str, set] = {}
+    for list_name, place in stack_list:
+        out[list_name] = []
+        for i, layer_spec in enumerate(specs[list_name]):
+            prefix, r = place(i)
+            if len(prefix) == 2:
+                positions.setdefault(prefix[0], set()).add(prefix[1])
+            lt = _skeleton(layer_spec)
+            for path, spec in _leaves(layer_spec):
+                expected.add(prefix + path)
+                take(lt, path, prefix + path + (r,), spec)
+            out[list_name].append(lt)
 
-    blocks = tree.get("blocks", ())
-    if len(blocks) != P:
-        raise ValueError(f"{who}: {len(blocks)} pattern positions in "
-                         f"blocks, the config has {P}")
-    extra = [f"blocks[{pos}]/{'/'.join(path)}"
-             for pos, blk in enumerate(blocks)
-             for path, _ in _leaves(blk)
-             if ("blocks", pos) + path not in expected]
-    extra += ["/".join(path) for path, _ in _leaves(
-        {k: v for k, v in tree.items() if k != "blocks"})
-        if ("top",) + path not in expected]
+    for seq, pos in positions.items():
+        if len(tree.get(seq, ())) != len(pos):
+            raise ValueError(f"{who}: {len(tree.get(seq, ()))} pattern "
+                             f"positions in {seq}, the config has "
+                             f"{len(pos)}")
+    extra = [_name(path) for path, _ in _ref_leaves(tree)
+             if path not in expected]
     if extra:
         raise ValueError(f"{who}: leaves the port does not expect: {extra}")
     return out
 
 
 def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping,
-                         device: DeviceLike = None) -> "_lm.LM":
-    """The reference's parameter pytree (``repro.models.lm.init_params``
-    layout, leaves as numpy arrays: ``embed``, ``blocks`` — a tuple over
-    pattern positions of dicts whose leaves stack the R repeats —,
-    ``final_norm``, ``unembed``, ``patch_proj``) -> the port's ``LM`` on
-    ``device``.  Layer ``r * P + pos`` takes ``blocks[pos][...][r]``.
-    Every leaf's shape and dtype is checked against the port's layout;
-    a missing leaf is named, and so is one the port does not expect."""
-    return _lm.LM(cfg, _port_layout(cfg, tree, resolve_device(device),
-                                    "lm_params_from_numpy"))
+                         device: DeviceLike = None) -> torch.nn.Module:
+    """The reference's parameter pytree (leaves as numpy arrays) -> the
+    port's module on ``device``.  Decoder-only (``repro.models.lm.
+    init_params`` layout: ``embed``, ``blocks`` -- a tuple over pattern
+    positions of dicts whose leaves stack the R repeats --, ``final_norm``,
+    ``unembed``, ``patch_proj``): an ``LM``, whose layer ``r * P + pos``
+    takes ``blocks[pos][...][r]``.  Enc-dec (``repro.models.encdec``:
+    ``enc_pos``, ``enc_blocks``, ``enc_norm``, ``embed``, ``dec_pos``,
+    ``dec_blocks``, ``final_norm``): an ``EncDec``, whose encoder and
+    decoder layer ``i`` take ``enc_blocks[...][i]`` and
+    ``dec_blocks[...][i]``.  Every leaf's shape and dtype is checked
+    against the port's layout; a missing leaf is named, and so is one the
+    port does not expect."""
+    cls = _family(cfg)[2]
+    return cls(cfg, _port_layout(cfg, tree, resolve_device(device),
+                                 "lm_params_from_numpy"))
 
 
 def _flat(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
     """The port's nested layout -> {parameter name: tensor}, named as the
-    ``LM``'s ``named_parameters`` (``layers.3.mix.wq``)."""
+    module's ``named_parameters`` (``layers.3.mix.wq``)."""
     out: Dict[str, torch.Tensor] = {}
     for name, val in tree.items():
         if isinstance(val, Mapping):
@@ -202,18 +239,30 @@ def _flat(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
+def _nest(spec, flat: Mapping[str, torch.Tensor], prefix: str = ""):
+    """The nesting of ``spec`` (the port's layout) with its leaves taken
+    from ``flat`` ({parameter name: tensor}, ``_flat``'s inverse) as
+    detached CPU tensors."""
+    if isinstance(spec, Mapping):
+        return {k: _nest(v, flat, f"{prefix}{k}.") for k, v in spec.items()}
+    if isinstance(spec, list):
+        return [_nest(v, flat, f"{prefix}{i}.") for i, v in enumerate(spec)]
+    return flat[prefix[:-1]].detach().cpu()
+
+
 def train_state_from_numpy(cfg: ModelConfig, params_tree: Mapping,
                            opt_tree: Mapping, device: DeviceLike = None
-                           ) -> Tuple["_lm.LM", Dict[str, Any]]:
+                           ) -> Tuple[torch.nn.Module, Dict[str, Any]]:
     """The reference's training state -> the port's: its parameter pytree
     (as ``lm_params_from_numpy`` takes it) and its AdamW state
     ``{"step", "m", "v"}`` (the moments float32 and shaped like the
-    parameters) become the ``LM`` (trainable) and the state
+    parameters) become the module (trainable) and the state
     ``optim.adamw_init`` shapes: ``{"step": int, "m": {name: tensor},
-    "v": {...}}``, keyed by the ``LM``'s parameter names.  Leaves are
+    "v": {...}}``, keyed by the module's parameter names.  Leaves are
     numpy arrays or CPU tensors (``ckpt.load_pytree`` gives those)."""
     dev = resolve_device(device)
-    model = _lm.LM(cfg, _port_layout(cfg, params_tree, dev, "params"))
+    cls = _family(cfg)[2]
+    model = cls(cfg, _port_layout(cfg, params_tree, dev, "params"))
     state: Dict[str, Any] = {"step": int(np.asarray(opt_tree["step"]))}
     for k in ("m", "v"):
         state[k] = _flat(_port_layout(cfg, opt_tree[k], dev, f"opt/{k}",
@@ -221,32 +270,16 @@ def train_state_from_numpy(cfg: ModelConfig, params_tree: Mapping,
     return model, state
 
 
-def train_state_tree(model: "_lm.LM", opt_state: Mapping) -> Dict:
-    """The port's ``LM`` and AdamW state -> the reference's layout of the
-    training state, ``{"params": parameter pytree, "opt": {"step", "m",
-    "v"}}``, as CPU tensors (``step`` int32): what both packages'
-    ``train_loop`` checkpoint, so either resumes the other's run."""
-    cfg = model.cfg
-    P = _lm.pattern_period(cfg)
-    R = cfg.n_layers // P
-    specs = _lm.param_specs(cfg)
+def train_state_tree(model: torch.nn.Module, opt_state: Mapping) -> Dict:
+    """The port's module (``LM`` or ``EncDec``) and AdamW state -> the
+    reference's layout of the training state, ``{"params": parameter
+    pytree, "opt": {"step", "m", "v"}}``, as CPU tensors (``step`` int32):
+    what both packages' ``train_loop`` checkpoint, so either resumes the
+    other's run."""
+    specs, stack_list, _ = _family(model.cfg)
 
     def ref_layout(flat: Mapping[str, torch.Tensor]) -> Dict:
-        get = lambda name: flat[name].detach().cpu()  # noqa: E731
-        top = {k: v for k, v in specs.items() if k != "layers"}
-        out = _skeleton(top)
-        for path, _ in _leaves(top):
-            _set(out, path, get(".".join(path)))
-        blocks = []
-        for pos in range(P):
-            blk = _skeleton(specs["layers"][pos])
-            for path, _ in _leaves(specs["layers"][pos]):
-                name = ".".join(path)
-                _set(blk, path, torch.stack(
-                    [get(f"layers.{r * P + pos}.{name}") for r in range(R)]))
-            blocks.append(blk)
-        out["blocks"] = blocks
-        return out
+        return _lm.reference_layout(_nest(specs, flat), stack_list)
 
     return {"params": ref_layout(dict(model.named_parameters())),
             "opt": {"step": torch.tensor(opt_state["step"],
@@ -256,7 +289,7 @@ def train_state_tree(model: "_lm.LM", opt_state: Mapping) -> Dict:
 
 
 def load_train_state(cfg: ModelConfig, path, device: DeviceLike = None
-                     ) -> Tuple["_lm.LM", Dict[str, Any]]:
+                     ) -> Tuple[torch.nn.Module, Dict[str, Any]]:
     """A training checkpoint directory (``step_…/``) that either package's
     ``train_loop`` wrote -> ``train_state_from_numpy``'s (LM, state); read
     with numpy and torch alone, bfloat16 leaves included."""

@@ -2,7 +2,7 @@
 
 Public surface mirrors the paper's Python front-end:
 
-    from repro.core.acadl import *
+    from repro_torch.core.acadl import *
 
     @generate
     def my_arch():

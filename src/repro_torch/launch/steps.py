@@ -1,10 +1,11 @@
 """Step builders: train_step / prefill_step / decode_step per config, in
 PyTorch (the port of ``repro.launch.steps``).
 
-Each builder closes over the ``ModelConfig``; the steps take the ``LM``,
-the optimizer state and the batch.  The reference's one ``jax.jit`` per
-step has no counterpart: a step runs eagerly, and its update is in place
-(``optim.adamw_update``), where the reference donates its buffers.
+Each builder closes over the ``ModelConfig``; the steps take the model
+(``LM``, or ``EncDec`` for whisper), the optimizer state and the batch.
+The reference's one ``jax.jit`` per step has no counterpart: a step runs
+eagerly, and its update is in place (``optim.adamw_update``), where the
+reference donates its buffers.
 """
 
 from __future__ import annotations
@@ -101,7 +102,8 @@ def make_train_step(cfg: ModelConfig, opt: Optional[AdamWConfig] = None,
 
 
 def init_train_state(cfg: ModelConfig, generator: torch.Generator,
-                     device: DeviceLike = None) -> Tuple[LM, Dict[str, Any]]:
+                     device: DeviceLike = None
+                     ) -> Tuple[torch.nn.Module, Dict[str, Any]]:
     """Random parameters (trainable masters) drawn from ``generator`` on
     its device, moved to ``device`` (default: the generator's), and their
     AdamW state there."""
@@ -111,10 +113,15 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
     return params, adamw_init(dict(params.named_parameters()))
 
 
-def abstract_train_state(cfg: ModelConfig):
-    raise NotImplementedError(
-        "abstract_train_state belongs to the dry run, which is not ported "
-        "to repro_torch yet; see ROADMAP.md, queue A, item 10")
+def abstract_train_state(cfg: ModelConfig) -> Tuple[Dict, Dict[str, Any]]:
+    """The dry run's training state: the reference's parameter pytree
+    (``Model.abstract_params``) and its AdamW state ``{"step": int32 (),
+    "m", "v"}`` (float32 moments shaped like the parameters), every leaf a
+    ``meta`` tensor: nothing is drawn and no storage is allocated."""
+    params = get_model(cfg).abstract_params()
+    opt_state = adamw_init(params)
+    opt_state["step"] = torch.empty((), dtype=torch.int32, device="meta")
+    return params, opt_state
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:

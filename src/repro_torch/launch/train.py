@@ -83,6 +83,9 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int,
         if cfg.n_patches:
             extra["patches"] = torch.zeros((batch, cfg.n_patches,
                                             cfg.d_model), device=dev)
+        if cfg.enc_dec is not None:
+            extra["frames"] = torch.zeros(
+                (batch, cfg.enc_dec.encoder_len, cfg.d_model), device=dev)
         return {"tokens": torch.from_numpy(np_batch["tokens"]).to(dev),
                 "labels": torch.from_numpy(np_batch["labels"]).to(dev),
                 **extra}

@@ -1,15 +1,19 @@
-"""Unified model API in PyTorch (the port of ``repro.models.api``) for the
-decoder-only families.
+"""Unified model API in PyTorch (the port of ``repro.models.api``): family
+dispatch and the dry run's input specs for every (arch x shape) cell.
 
-``Model`` dispatches to ``lm``.  Its entry points that create tensors
-(``init_params``, ``init_cache``) run on ``cuda`` unless the caller passes
-``device="cpu"``; the others run where the parameters are.  ``logits`` and
-``logits_and_aux`` are recorded by autograd when grad mode is on and the
-parameters are trainable (training; ``launch.steps``), and run under
-``torch.inference_mode`` otherwise (scoring); ``prefill`` and
-``decode_step`` always run under it.  Not ported yet, and raising
-``NotImplementedError``: the encoder-decoder family (whisper) and the dry
-run (``abstract_params``, ``input_specs``).
+``Model`` dispatches to ``lm`` (decoder-only) or ``encdec`` (whisper).  Its
+entry points that create tensors (``init_params``, ``init_cache``) run on
+``cuda`` unless the caller passes ``device="cpu"``; the others run where
+the parameters are.  ``logits`` and ``logits_and_aux`` are recorded by
+autograd when grad mode is on and the parameters are trainable (training;
+``launch.steps``), and run under ``torch.inference_mode`` otherwise
+(scoring); ``prefill`` and ``decode_step`` always run under it.
+
+The dry run: ``Model.abstract_params`` and ``input_specs`` give the
+reference's parameter pytree and step inputs as tensors on the ``meta``
+device, with the reference's shapes and dtypes (``jax.ShapeDtypeStruct``'s
+counterpart): nothing is drawn and no storage is allocated.  ``[audio]`` and
+``[vlm]`` stubs: frames and patches arrive as precomputed embeddings.
 """
 
 from __future__ import annotations
@@ -18,18 +22,18 @@ from typing import Any, Dict, Tuple, Union
 
 import torch
 
-from . import lm
+from . import encdec, lm
 from .config import ModelConfig, ShapeConfig
 from ..device import DeviceLike, resolve_device
 
 __all__ = ["Model", "get_model", "input_specs", "cell_is_runnable"]
 
-_DRY_RUN = ("the dry run (abstract parameters, input specs) is not ported "
-            "to repro_torch yet; see ROADMAP.md, queue A, item 10")
+META = torch.device("meta")
 
 
 class Model:
-    """Thin dispatcher over ``lm`` (the enc-dec family is not ported)."""
+    """Thin dispatcher: decoder-only LMs via ``lm``, whisper via
+    ``encdec``."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -37,7 +41,8 @@ class Model:
 
     # -- params ---------------------------------------------------------------
     def init_params(self, key: Union[int, torch.Generator] = 0,
-                    device: DeviceLike = None) -> lm.LM:
+                    device: DeviceLike = None) -> Union[lm.LM,
+                                                        encdec.EncDec]:
         """Random parameters from a seed (or a generator, whose device is
         then used) at the reference's init scales."""
         if isinstance(key, torch.Generator):
@@ -45,39 +50,54 @@ class Model:
         else:
             gen = torch.Generator(device=resolve_device(device))
             gen.manual_seed(int(key))
+        if self.is_encdec:
+            return encdec.init_params_encdec(self.cfg, gen)
         return lm.init_params(self.cfg, gen)
 
-    def abstract_params(self):
-        raise NotImplementedError(_DRY_RUN)
+    def abstract_params(self) -> Dict:
+        """The reference's parameter pytree as ``meta`` tensors."""
+        if self.is_encdec:
+            return encdec.abstract_params_encdec(self.cfg)
+        return lm.abstract_params(self.cfg)
 
     # -- forward --------------------------------------------------------------
-    def logits(self, params: lm.LM, batch: Dict[str, Any],
+    def logits(self, params, batch: Dict[str, Any],
                remat: bool = True) -> torch.Tensor:
         return self.logits_and_aux(params, batch, remat)[0]
 
-    def logits_and_aux(self, params: lm.LM, batch: Dict[str, Any],
+    def logits_and_aux(self, params, batch: Dict[str, Any],
                        remat: bool = True
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-        lm._check_supported(self.cfg)
-        return lm.forward_with_aux(params, self.cfg, batch["tokens"],
+        cfg = self.cfg
+        if self.is_encdec:
+            lg = encdec.forward_encdec(params, cfg, batch["tokens"],
+                                       batch["frames"])
+            return lg, torch.zeros((), dtype=torch.float32,
+                                   device=lg.device)
+        return lm.forward_with_aux(params, cfg, batch["tokens"],
                                    patches=batch.get("patches"), remat=remat)
 
     # -- serving ----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int,
                    device: DeviceLike = None):
-        return lm.init_cache(self.cfg, batch, max_len,
-                             resolve_device(device))
+        dev = resolve_device(device)
+        if self.is_encdec:
+            return encdec.init_cache_encdec(self.cfg, batch, max_len, dev)
+        return lm.init_cache(self.cfg, batch, max_len, dev)
 
-    def prefill(self, params: lm.LM, batch: Dict[str, Any], cache):
+    def prefill(self, params, batch: Dict[str, Any], cache):
         """The reference's prefill: ``impl="chunked"`` whatever
         ``cfg.attention_impl`` says (the kernel path of prefill is
         ``lm.prefill(..., impl="flash_pallas")``)."""
-        lm._check_supported(self.cfg)
+        if self.is_encdec:
+            return encdec.prefill_encdec(params, self.cfg, batch["tokens"],
+                                         batch["frames"], cache)
         return lm.prefill(params, self.cfg, batch["tokens"], cache,
                           patches=batch.get("patches"))
 
-    def decode_step(self, params: lm.LM, token, cache):
-        lm._check_supported(self.cfg)
+    def decode_step(self, params, token, cache):
+        if self.is_encdec:
+            return encdec.decode_step_encdec(params, self.cfg, token, cache)
         return lm.decode_step(params, self.cfg, token, cache)
 
 
@@ -99,5 +119,25 @@ def cell_is_runnable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
     return True, ""
 
 
-def input_specs(cfg: ModelConfig, shape: ShapeConfig):
-    raise NotImplementedError(_DRY_RUN)
+def _spec(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """The step function's data inputs as ``meta`` tensors: tokens (and
+    labels when training) int32, patches and frames bfloat16; decode takes
+    one new token against a ``seq_len``-deep cache."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.mode in ("train", "prefill"):
+        n_text = S - cfg.n_patches if cfg.n_patches else S
+        specs: Dict[str, Any] = {"tokens": _spec((B, n_text), torch.int32)}
+        if shape.mode == "train":
+            specs["labels"] = _spec((B, n_text), torch.int32)
+        if cfg.n_patches:
+            specs["patches"] = _spec((B, cfg.n_patches, cfg.d_model),
+                                     torch.bfloat16)
+        if cfg.enc_dec is not None:
+            specs["frames"] = _spec((B, cfg.enc_dec.encoder_len,
+                                     cfg.d_model), torch.bfloat16)
+        return specs
+    return {"token": _spec((B, 1), torch.int32)}

@@ -12,7 +12,9 @@ einsum upcasts its operands first, so bf16 inputs give the same numbers.
 here) sends attention through ``kernels.flash_attention``: the
 hand-written kernel for CUDA tensors, its plain version for CPU tensors.
 
-MLA (``init_mla``/``mla_block``) is not ported yet (ROADMAP.md, A10).
+MLA (``init_mla``/``mla_block``) prefills and trains through ``_attend``
+at Dq = dn + dr != Dv, and decodes in the absorbed form over its
+compressed cache.
 """
 
 from __future__ import annotations
@@ -326,20 +328,92 @@ def _decode_attention(q, ck, cv, kpos, cur_pos, window: int = 0):
 
 
 # ---------------------------------------------------------------------------
-# MLA (not ported yet)
+# MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2)
 # ---------------------------------------------------------------------------
 
 
-MLA_NOT_PORTED = ("multi-head latent attention (MLA) is not ported to "
-                  "repro_torch yet; see ROADMAP.md, queue A, item 10")
+def init_mla(gen, cfg: AttentionConfig, d_model: int, dtype: torch.dtype,
+             device) -> Dict:
+    a = cfg
+    s = d_model ** -0.5
+    qk = a.qk_nope_head_dim + a.qk_rope_head_dim
+    ones = lambda n: torch.ones((n,), dtype=dtype, device=device)  # noqa: E731
+    return {
+        "wdq": normal(gen, (d_model, a.q_lora_rank), dtype, s, device),
+        "q_norm": {"scale": ones(a.q_lora_rank)},
+        "wuq": normal(gen, (a.q_lora_rank, a.n_heads * qk), dtype, s, device),
+        "wdkv": normal(gen, (d_model, a.kv_lora_rank), dtype, s, device),
+        "kv_norm": {"scale": ones(a.kv_lora_rank)},
+        "wkr": normal(gen, (d_model, a.qk_rope_head_dim), dtype, s, device),
+        "wuk": normal(gen, (a.n_heads, a.kv_lora_rank, a.qk_nope_head_dim),
+                      dtype, s, device),
+        "wuv": normal(gen, (a.n_heads, a.kv_lora_rank, a.v_head_dim), dtype,
+                      s, device),
+        "wo": normal(gen, (a.n_heads * a.v_head_dim, d_model), dtype, s,
+                     device),
+    }
 
 
-def _mla_not_ported(*_, **__):
-    raise NotImplementedError(MLA_NOT_PORTED)
+def mla_block(params: Params, x: torch.Tensor, cfg: AttentionConfig, *,
+              positions: torch.Tensor, causal: bool = True,
+              cache: Optional[Dict] = None, impl: str = "chunked",
+              chunk: int = 1024) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Multi-head latent attention.
 
+    Prefill and training expand the compressed KV into per-head k (Dq =
+    dn + dr) and v (Dv) and run ``_attend`` (the kernel path takes Dq !=
+    Dv).  Decode is the absorbed form: the cache ``{"c_kv": (B, T, R),
+    "k_rope": (B, T, dr), "pos": int}`` holds only the compressed KV and
+    the shared rotary key; W_uk folds into the query and W_uv into the
+    output, with float32 products.  The cache is updated IN PLACE, as in
+    ``attention_block``: use the returned cache."""
+    a = cfg
+    b, s, _ = x.shape
+    nh = a.n_heads
+    dn, dr, dv = a.qk_nope_head_dim, a.qk_rope_head_dim, a.v_head_dim
 
-init_mla = _mla_not_ported
-mla_block = _mla_not_ported
+    cq = rmsnorm(x @ params["wdq"], params["q_norm"]["scale"])
+    q = (cq @ params["wuq"]).reshape(b, s, nh, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, a.rope_theta)
+
+    c_kv = rmsnorm(x @ params["wdkv"], params["kv_norm"]["scale"])  # (B,S,R)
+    k_rope = apply_rope((x @ params["wkr"])[:, :, None, :], positions,
+                        a.rope_theta)                            # (B,S,1,dr)
+
+    new_cache = None
+    if cache is not None:
+        pos = int(cache["pos"])
+        cc, cr = cache["c_kv"], cache["k_rope"]
+        at = slice(pos, pos + 1) if s == 1 else slice(0, s)
+        cc[:, at] = c_kv.to(cc.dtype)
+        cr[:, at] = k_rope[:, :, 0].to(cr.dtype)
+        new_cache = {"c_kv": cc, "k_rope": cr, "pos": pos + s}
+    if cache is not None and s == 1:
+        # absorbed single-step decode over the compressed cache
+        f32 = lambda t: t.float()  # noqa: E731
+        q_abs = torch.einsum("bshd,hrd->bshr", f32(q_nope),
+                             f32(params["wuk"]))                 # (B,S,H,R)
+        scale = 1.0 / np.sqrt(dn + dr)
+        s_lat = torch.einsum("bshr,btr->bhst", q_abs, f32(cc))
+        s_rope = torch.einsum("bshd,btd->bhst", f32(q_rope), f32(cr))
+        scores = (s_lat + s_rope) * scale
+        valid = torch.arange(cc.shape[1], device=x.device) < pos + s
+        scores = scores.masked_fill_(~valid, NEG)
+        p = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", p, f32(cc))          # (B,S,H,R)
+        out = torch.einsum("bshr,hrd->bshd", ctx,
+                           f32(params["wuv"])).to(x.dtype)
+    else:
+        # train / prefill: expand the compressed KV, causal attention
+        k_nope = torch.einsum("bsr,hrd->bshd", c_kv, params["wuk"])
+        v = torch.einsum("bsr,hrd->bshd", c_kv, params["wuv"])
+        k = torch.cat([k_nope, k_rope.expand(b, s, nh, dr)], dim=-1)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        out = _attend(qfull, k, v, causal=causal, window=0, impl=impl,
+                      chunk=chunk)
+    out = out.reshape(b, s, nh * dv) @ params["wo"]
+    return out, new_cache
 
 
 # ---------------------------------------------------------------------------

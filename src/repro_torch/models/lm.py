@@ -1,10 +1,10 @@
 """Decoder-only LM over the config schema, in PyTorch: the port of
-``repro.models.lm`` for the GQA, Mamba and MoE families.
+``repro.models.lm`` for the GQA, MLA, Mamba and MoE families.
 
 The parameters live in ``nn.Module``s whose parameter names are the
 reference's leaf names: ``LM`` holds ``embed``, ``layers`` (one ``Block``
-per layer: ``ln1``, ``mix`` = ``Attention`` or ``Mamba``, ``ln2``, ``ffn``
-= ``MLP`` or ``MoE``), ``final_norm`` and, untied, ``unembed``.  The
+per layer: ``ln1``, ``mix`` = ``Attention``, ``MLA`` or ``Mamba``, ``ln2``,
+``ffn`` = ``MLP`` or ``MoE``), ``final_norm`` and, untied, ``unembed``.  The
 reference stacks layers by pattern position; layer ``r * P + pos`` here
 holds the reference's ``blocks[pos][...][r]`` (``P = pattern_period``).
 The functions below take the ``LM`` where the reference takes its
@@ -14,6 +14,8 @@ default).
 Entry points:
   init_params(cfg, generator)          random parameters at the reference's
                                        init scales, on the generator's device
+  abstract_params(cfg)                 the reference's parameter layout as
+                                       ``meta`` tensors (the dry run)
   forward / forward_with_aux           logits of a full pass: training
                                        (under autograd) or scoring
   init_cache / prefill / decode_step   serving path with KV/SSM caches,
@@ -39,8 +41,8 @@ Caches are updated in place (see ``layers.attention_block``).  The layer
 output's cotangent is cast to the compute dtype
 (``_grad_to_compute_dtype``), as in the reference.  The reference's
 ``_barrier`` (an XLA scheduling hint, the identity) and its sharding hints
-have no counterpart in eager PyTorch.  Not ported: MLA attention and the
-encoder-decoder family (ROADMAP.md).
+have no counterpart in eager PyTorch.  The encoder-decoder family is
+``models.encdec``.
 """
 
 from __future__ import annotations
@@ -59,9 +61,10 @@ from .mamba import init_mamba, init_mamba_cache, mamba_block
 from .moe import init_moe, moe_block
 
 __all__ = ["pattern_period", "cast_tree", "init_params", "param_specs",
-           "forward", "forward_with_aux", "init_cache", "prefill",
-           "decode_step", "LM", "Block", "Attention", "Mamba", "MLP", "MoE",
-           "Norm", "keeps_f32"]
+           "abstract_params", "stacks", "reference_layout", "forward",
+           "forward_with_aux", "init_cache", "prefill", "decode_step", "LM",
+           "Block", "Attention", "MLA", "Mamba", "MLP", "MoE", "Norm",
+           "Params", "keeps_f32", "records_grad"]
 
 # parameters kept in float32 regardless of compute dtype (numerics-critical)
 _F32_LEAVES = ("A_log", "D", "dt_bias", "router")
@@ -138,6 +141,11 @@ class Attention(Params):
     """GQA attention: ``wq``, ``wk``, ``wv``, ``wo``."""
 
 
+class MLA(Params):
+    """Multi-head latent attention: ``wdq``, ``q_norm``, ``wuq``, ``wdkv``,
+    ``kv_norm``, ``wkr``, ``wuk``, ``wuv``, ``wo``."""
+
+
 class Mamba(Params):
     """Mamba-1 mixer: ``in_proj``, ``conv_w``, ``conv_b``, ``x_proj``,
     ``dt_proj``, ``dt_bias``, ``A_log``, ``D``, ``out_proj``."""
@@ -160,7 +168,9 @@ class Block(nn.Module):
         super().__init__()
         self.kind, self.is_moe = kind, is_moe
         self.ln1 = Norm(tree["ln1"])
-        self.mix = (Attention if kind == "attn" else Mamba)(tree["mix"])
+        mixer = Mamba if kind == "mamba" else (
+            MLA if "wdkv" in tree["mix"] else Attention)
+        self.mix = mixer(tree["mix"])
         if "ffn" in tree:
             self.ln2 = Norm(tree["ln2"])
             self.ffn = (MoE if is_moe else MLP)(tree["ffn"])
@@ -207,8 +217,9 @@ def _init_layer(gen, cfg: ModelConfig, kind: str, is_moe: bool,
                          "ln2": init_norm(cfg.norm, cfg.d_model, dtype,
                                           device)}
     if kind == "attn":
-        p["mix"] = L.init_attention(gen, cfg.attention, cfg.d_model, dtype,
-                                    device)
+        init = L.init_mla if cfg.attention.kind == "mla" else \
+            L.init_attention
+        p["mix"] = init(gen, cfg.attention, cfg.d_model, dtype, device)
     else:
         p["mix"] = init_mamba(gen, cfg.ssm, cfg.d_model, dtype, device)
     if is_moe:
@@ -222,17 +233,7 @@ def _init_layer(gen, cfg: ModelConfig, kind: str, is_moe: bool,
     return p
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.enc_dec is not None:
-        raise NotImplementedError(
-            "the encoder-decoder family (whisper) is not ported to "
-            "repro_torch yet; see ROADMAP.md, queue A, item 10")
-    if cfg.attention.kind == "mla" and "attn" in cfg.layer_kinds():
-        raise NotImplementedError(L.MLA_NOT_PORTED)
-
-
 def _init_tree(cfg: ModelConfig, gen, device) -> Dict:
-    _check_supported(cfg)
     dtype = _dtype(cfg.param_dtype)
     kinds, moes = cfg.layer_kinds(), cfg.moe_layers()
     s = cfg.d_model ** -0.5
@@ -263,6 +264,52 @@ def param_specs(cfg: ModelConfig) -> Dict:
     """The port's parameter layout as ``meta`` tensors (shapes and dtypes,
     no storage)."""
     return _init_tree(cfg, None, torch.device("meta"))
+
+
+def stacks(cfg: ModelConfig):
+    """Where the reference keeps each layer of the port's layout: ``[(list
+    name, place)]``, ``place(i)`` -> (path of layer ``i``'s stacked dict in
+    the reference's tree, its index along the stacked axis).  Layer
+    ``r * P + pos`` is ``blocks[pos][...][r]``."""
+    P = pattern_period(cfg)
+    return [("layers", lambda i: (("blocks", i % P), i // P))]
+
+
+def reference_layout(tree: Mapping, stack_list) -> Dict:
+    """The port's layout (lists of layer dicts, as ``param_specs``) -> the
+    reference's: each list goes where ``stack_list`` places its layers (a
+    dict, or a tuple of dicts by pattern position), each leaf the
+    ``torch.stack`` of its layers' in layer order (``meta`` tensors stay
+    ``meta``: no storage)."""
+    out: Dict[str, Any] = {k: v for k, v in tree.items()
+                           if k not in dict(stack_list)}
+    for name, place in stack_list:
+        groups: Dict[tuple, list] = {}
+        for i, layer in enumerate(tree[name]):
+            groups.setdefault(place(i)[0], []).append(layer)
+        for path, members in groups.items():
+            stacked = _stack_trees(members)
+            if len(path) == 1:
+                out[path[0]] = stacked
+            else:           # (name, position): a tuple over positions
+                seq = list(out.get(path[0], [None] * len(groups)))
+                seq[path[1]] = stacked
+                out[path[0]] = tuple(seq)
+    return out
+
+
+def _stack_trees(trees: List[Mapping]) -> Dict:
+    return {k: _stack_trees([t[k] for t in trees])
+            if isinstance(v, Mapping) else torch.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
+
+
+def abstract_params(cfg: ModelConfig) -> Dict:
+    """The reference's parameter pytree (``blocks`` a tuple over pattern
+    positions whose leaves stack the repeats) as ``meta`` tensors: the
+    dry run's shapes and dtypes; nothing is drawn and no storage is
+    allocated."""
+    return reference_layout(param_specs(cfg), stacks(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -297,9 +344,11 @@ def _layer_apply(cfg: ModelConfig, kind: str, is_moe: bool, lp: Mapping,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm(cfg.norm, x, lp["ln1"])
     if kind == "attn":
-        mixed, new_cache = L.attention_block(
-            lp["mix"], h, cfg.attention, positions=positions, causal=True,
-            cache=cache, impl=impl, chunk=chunk)
+        fn = L.mla_block if cfg.attention.kind == "mla" else \
+            L.attention_block
+        mixed, new_cache = fn(lp["mix"], h, cfg.attention,
+                              positions=positions, causal=True, cache=cache,
+                              impl=impl, chunk=chunk)
     else:
         mixed, new_cache = mamba_block(lp["mix"], h, cfg.ssm, cache=cache,
                                        impl=cfg.ssm_impl)
@@ -346,6 +395,13 @@ _KERNEL_IMPLS = {"attn": ("flash_pallas", "flash_pallas_interpret"),
                  "mamba": ("pallas", "pallas_interpret")}
 
 
+def records_grad(params: nn.Module) -> bool:
+    """Whether a pass over ``params`` is recorded by autograd: grad mode is
+    on and a parameter requires a gradient."""
+    return torch.is_grad_enabled() and any(p.requires_grad
+                                           for p in params.parameters())
+
+
 def forward_with_aux(params: LM, cfg: ModelConfig, tokens,
                      patches=None, impl: Optional[str] = None,
                      chunk: int = 1024, remat: bool = True
@@ -356,8 +412,7 @@ def forward_with_aux(params: LM, cfg: ModelConfig, tokens,
     ``remat``: checkpointed groups of ``cfg.remat_group`` pattern-period
     repeats), else run under ``torch.inference_mode``."""
     impl = impl or cfg.attention_impl
-    if not (torch.is_grad_enabled()
-            and any(p.requires_grad for p in params.parameters())):
+    if not records_grad(params):
         with torch.inference_mode():
             return _forward(params, cfg, tokens, patches, impl, chunk, None)
     if params.embed.is_cuda:
@@ -428,6 +483,12 @@ def _round_up(x: int, m: int) -> int:
 def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                  dtype: torch.dtype, device) -> Dict:
     a = cfg.attention
+    if kind == "attn" and a.kind == "mla":
+        return {"c_kv": torch.zeros((batch, max_len, a.kv_lora_rank),
+                                    dtype=dtype, device=device),
+                "k_rope": torch.zeros((batch, max_len, a.qk_rope_head_dim),
+                                      dtype=dtype, device=device),
+                "pos": 0}
     if kind == "attn":
         t = max_len if a.window == 0 else min(max_len,
                                               _round_up(a.window, 128))
@@ -444,8 +505,8 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device) -> List[Dict]:
     """One cache per layer, in layer order (attention: KV ring or buffer
-    with absolute positions; mamba: conv tail and SSM state)."""
-    _check_supported(cfg)
+    with absolute positions; MLA: the compressed KV and the rotary key;
+    mamba: conv tail and SSM state)."""
     dtype = _dtype(cfg.compute_dtype)
     return [_layer_cache(cfg, kind, batch, max_len, dtype, device)
             for kind in cfg.layer_kinds()]

@@ -31,13 +31,24 @@ class AdamWConfig:
     schedule: Optional[Callable[[int], float]] = None
 
 
-def adamw_init(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+def _zeros_like_tree(tree):
+    """float32 zeros shaped like every tensor of a nested dict / list /
+    tuple, each on its tensor's device (``meta`` stays ``meta``: no
+    storage)."""
+    if isinstance(tree, Mapping):
+        return {k: _zeros_like_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zeros_like_tree(v) for v in tree)
+    return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
+
+
+def adamw_init(params: Mapping[str, Any]) -> Dict[str, Any]:
     """``{"step": 0, "m": zeros, "v": zeros}``, the moments float32 on each
-    parameter's device."""
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for k, p in params.items()}
-    return {"step": 0, "m": zeros,
-            "v": {k: z.clone() for k, z in zeros.items()}}
+    parameter's device and shaped like ``params`` (a dict of tensors, or
+    any nesting of dicts, lists and tuples, as the reference's tree-generic
+    init)."""
+    return {"step": 0, "m": _zeros_like_tree(params),
+            "v": _zeros_like_tree(params)}
 
 
 def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:

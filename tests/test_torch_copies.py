@@ -194,6 +194,9 @@ def test_port_files_import_no_jax_and_no_repro():
     scanned = {f.parent.name for f in files}
     assert {"serve", "surrogate", "optim", "launch", "ckpt", "data",
             "runtime"} <= scanned, scanned
+    for name in ("models/encdec.py", "models/api.py", "models/layers.py",
+                 "launch/steps.py", "optim/adamw.py", "convert.py"):
+        assert ROOT / "src" / "repro_torch" / name in files, name
     bad = {str(f.relative_to(ROOT)): m for f in files
            for m in _imported_modules(f) if _forbidden(m)}
     assert not bad, bad
@@ -365,12 +368,18 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_card(
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert model.init_params(0, device="cpu").embed.device.type == "cpu"
-    # not ported: the enc-dec family and the dry run
+    # the enc-dec family: the same default, and the CPU when asked
     whisper = port_get_model(port_configs.get_smoke_config("whisper_small"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        whisper.init_params(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.abstract_params()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        whisper.init_params(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        whisper.init_cache(1, 8)
+    params = whisper.init_params(0, device="cpu")
+    assert {p.device.type for p in params.parameters()} == {"cpu"}
+    # the dry run needs no card: every leaf on the meta device
+    for m in (model, whisper):
+        leaves = jax.tree.leaves(m.abstract_params())
+        assert leaves and all(t.is_meta for t in leaves)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 flash attention, selective scan, systolic GEMM) against its plain PyTorch
 version on the card, the blocked and packed Explorer paths and the
 packed soft gradients, the ``kernels.ops`` wrappers, a small LM
-forward through the kernels, and training (a train step against the CPU's,
-crash-resume).
+forward through the kernels, training (a train step against the CPU's,
+crash-resume), MLA through the flash kernel at Dq != Dv and whisper's
+encoder.
 Every test is marked ``cuda`` and skips where no card is present.
 
 This file imports neither ``jax`` nor ``repro``, so it runs on a machine
@@ -896,3 +897,110 @@ def test_recorded_pass_refuses_the_kernels_on_card(card):
         port_lm.forward(params, cfg, toks)
     with torch.no_grad():
         assert torch.isfinite(port_lm.forward(params, cfg, toks)).all()
+
+
+# ---------------------------------------------------------------------------
+# MLA (minicpm3-4b) and the enc-dec family (whisper-small)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,s,dtype", [(1, 256, torch.float32),
+                                       (1, 333, torch.float32),
+                                       (1, 1000, torch.bfloat16),
+                                       (2, 333, torch.bfloat16)])
+def test_cuda_core_flash_at_mla_head_dims_matches_plain(card, exact_f32, b,
+                                                        s, dtype):
+    """MLA's prefill shape: 40 heads a batch row, Dq = dn + dr = 96,
+    Dv = 64, causal, ragged S: the ``cuda_core`` kernel (the ``wgmma`` one
+    needs Dq == Dv == 128)."""
+    rng = np.random.default_rng(b * s)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(dtype).to(card)
+               for shape in ((40 * b, s, 96), (40 * b, s, 96),
+                             (40 * b, s, 64)))
+    assert FA.plan(96, 64, dtype, True) == "cuda_core"
+    before = dict(FA.VARIANT_LAUNCHES)
+    out = FA.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ran = {n: FA.VARIANT_LAUNCHES[n] - before[n] for n in FA.VARIANTS}
+    assert ran == {"wgmma": 0, "cuda_core": 1, "mma_sync": 0}
+    assert out.dtype == dtype and out.shape == (40 * b, s, 64)
+    assert_flash_close(out, q, k, v, causal=True)
+
+
+def test_mla_block_on_card_kernel_matches_chunked(card, exact_f32):
+    """One MLA block at minicpm3-4b's attention widths (d 2560, 40 heads,
+    q_lora 768, kv_lora 256, dn 64, dr 32, dv 64), float32, S = 300: the
+    kernel impl (one ``cuda_core`` launch) against the chunked impl."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config("minicpm3_4b")
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = L.init_mla(gen, cfg.attention, cfg.d_model, torch.float32,
+                        card)
+    x = torch.randn((1, 300, cfg.d_model), generator=gen, device=card)
+    pos = torch.arange(300, device=card)[None]
+    before = dict(FA.VARIANT_LAUNCHES)
+    with torch.no_grad():
+        kern, _ = L.mla_block(params, x, cfg.attention, positions=pos,
+                              impl="flash_pallas")
+        plain, _ = L.mla_block(params, x, cfg.attention, positions=pos,
+                               impl="chunked", chunk=100)
+    assert FA.VARIANT_LAUNCHES["cuda_core"] == before["cuda_core"] + 1
+    assert FA.VARIANT_LAUNCHES["wgmma"] == before["wgmma"]
+    torch.testing.assert_close(kern, plain, atol=3e-4, rtol=1e-3)
+
+
+def test_minicpm3_forward_on_card_goes_through_the_kernel(card, exact_f32):
+    """minicpm3-4b's smoke config on the card, float32: scoring with the
+    kernel impl launches ``cuda_core`` once per layer (no plain version)
+    and agrees with the chunked impl; the absorbed decode follows a
+    prefill on the kernel impl."""
+    cfg = replace(get_smoke_config("minicpm3_4b"), compute_dtype="float32")
+    model = get_model(cfg)
+    params = model.init_params(0, device=card)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64))).to(card)
+    FA.reset_counts()
+    with torch.no_grad():
+        kern = port_lm.forward(params, cfg, toks, impl="flash_pallas")
+        plain = port_lm.forward(params, cfg, toks)
+    assert FA.VARIANT_LAUNCHES["cuda_core"] == cfg.n_layers
+    assert FA.PLAIN_CALLS["flash_attention"] == 0
+    torch.testing.assert_close(kern, plain, atol=3e-4, rtol=1e-3)
+    last, cache = port_lm.prefill(params, cfg, toks[:, :48],
+                                  model.init_cache(2, 64, device=card),
+                                  impl="flash_pallas")
+    torch.testing.assert_close(last[:, 0], plain[:, 47], atol=3e-4,
+                               rtol=1e-3)
+    for i in range(48, 52):
+        out, cache = model.decode_step(params, toks[:, i:i + 1], cache)
+        torch.testing.assert_close(out[:, 0], plain[:, i], atol=3e-4,
+                                   rtol=1e-3)
+
+
+def test_whisper_encode_on_card_matches_cpu(card, exact_f32):
+    """whisper-small's smoke config, float32: the encoder's output and the
+    teacher-forced logits on the card equal the CPU's within the LM tests'
+    tolerance; no kernel launches (dense and chunked impls)."""
+    from repro_torch.models import encdec
+    cfg = replace(get_smoke_config("whisper_small"), compute_dtype="float32")
+    model = get_model(cfg)
+    cpu = model.init_params(0, device="cpu")
+    params = model.init_params(0, device="cpu").to(card)
+    rng = np.random.default_rng(2)
+    frames = torch.from_numpy(rng.normal(size=(
+        2, cfg.enc_dec.encoder_len, cfg.d_model)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    FA.reset_counts()
+    with torch.no_grad():
+        enc = encdec.encode(params, cfg, frames.to(card))
+        assert enc.is_cuda
+        torch.testing.assert_close(enc.cpu(),
+                                   encdec.encode(cpu, cfg, frames),
+                                   atol=2e-4, rtol=1e-3)
+        logits = model.logits(params, {"tokens": toks.to(card),
+                                       "frames": frames.to(card)})
+        want = model.logits(cpu, {"tokens": toks, "frames": frames})
+    torch.testing.assert_close(logits.cpu(), want, atol=2e-4, rtol=1e-3)
+    assert FA.LAUNCHES["flash_attention"] == 0

@@ -219,15 +219,6 @@ def test_attention_block_matches_reference(arch, prefill, max_len):
         _close(pc["k"], rc["k"])
 
 
-def test_mla_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_layers.mla_block({}, torch.zeros(1, 1, 4), None,
-                              positions=torch.zeros(1, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_get_model(port_smoke("minicpm3_4b")).init_params(0,
-                                                              device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # mamba block: kernel path, chunked scan with and without a cache, decode
 # ---------------------------------------------------------------------------
@@ -494,17 +485,52 @@ def test_jamba_prefill_and_decode_match_reference(jamba):
         _close(out, ref)
 
 
-@pytest.mark.parametrize("arch", ["olmo_1b", "falcon_mamba_7b"])
+SMOKE_ARCHS = ["olmo_1b", "falcon_mamba_7b", "h2o_danube3_4b",
+               "deepseek_moe_16b", "mistral_large_123b", "phi3_vision_4b"]
+
+
+def _smoke_batch(cfg, b, s):
+    """Tokens, and for a VLM the precomputed patch embeddings."""
+    batch = {"tokens": _tokens(cfg, b, s)}
+    if cfg.n_patches:
+        batch["patches"] = np.random.default_rng(2).normal(
+            size=(b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
 def test_smoke_forward_matches_reference(arch):
-    """olmo-1b: non-parametric LayerNorm, tied embeddings; falcon-mamba:
-    mamba-only layers without an FFN — through ``Model.logits``."""
+    """Through ``Model.logits``, then ``Model.prefill`` and 3 greedy
+    ``Model.decode_step``s.  olmo-1b: non-parametric LayerNorm, tied
+    embeddings; falcon-mamba: mamba-only layers without an FFN;
+    h2o-danube3: sliding-window attention (window 16: the decode steps
+    mask the oldest keys);
+    deepseek-moe: shared + routed experts (capacity 8, C5); mistral-large:
+    bfloat16 masters, GQA 8/2; phi3-vision: patch embeddings prepended."""
     rcfg, pcfg, params, port = _models(arch)
-    toks = _tokens(rcfg, 2, 16)
-    ref = ref_get_model(rcfg).logits(params, {"tokens": jnp.asarray(toks)})
-    out = port_get_model(pcfg).logits(port, {"tokens": toks})
-    assert out.shape == (2, 16, rcfg.vocab_size)
+    b, s = 2, 16
+    batch = _smoke_batch(rcfg, b, s)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    rm, pm = ref_get_model(rcfg), port_get_model(pcfg)
+    ref = rm.logits(params, jb)
+    out = pm.logits(port, batch)
+    total = s + rcfg.n_patches
+    assert out.shape == (b, total, rcfg.vocab_size)
     _close(out, ref)
-    assert torch.equal(port(toks), out)       # the module's own call
+    assert torch.equal(port(batch["tokens"], batch.get("patches")), out)
+    ref_decode = jax.jit(rm.decode_step)      # one trace for the 3 steps
+    rc, pc = rm.init_cache(b, total + 4), pm.init_cache(b, total + 4,
+                                                          device="cpu")
+    ref, rc = rm.prefill(params, jb, rc)
+    out, pc = pm.prefill(port, batch, pc)
+    _close(out, ref)
+    for _ in range(3):
+        rt = np.asarray(jnp.argmax(ref[:, -1], -1))[:, None]
+        pt = out[:, -1].argmax(-1)[:, None]
+        assert np.array_equal(pt.numpy(), rt)
+        ref, rc = ref_decode(params, jnp.asarray(rt), rc)
+        out, pc = pm.decode_step(port, pt, pc)
+        _close(out, ref)
 
 
 def test_cast_tree_keeps_float32_leaves(jamba):
