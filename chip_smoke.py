@@ -49,26 +49,27 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    (above the closure kernel's 128) on oma/gemm, counters zeroed just
    before and read just after (general matmul and matvec launched, none
    of the block-128 entries), equal on integer work to block 128;
-6. flash attention and the selective scan against their plain versions
-   on the card (TF32 off): flash at the LM path's shape (4 x 32 query
-   heads over 4 x 8 KV heads, S = 2048, D = 128) in bf16 and in f32, at
-   the prefill shape (S = 512) in bf16, ragged S = 1000, window 256 at S =
-   1024, non-causal, Dv != Dq; the kernel ``flash_attention.plan`` picks
-   for each case printed and checked against ``VARIANT_LAUNCHES`` (every
-   bf16 D = 128 case on ``wgmma``); the scan at (4, 2048, 8192, 16) and
-   (1, 1024, 8192, 16), jamba's two mamba shapes, and at (2, 33, 100, 8),
-   the plan ``selective_scan.plan`` picks printed and checked against
-   ``VARIANT_LAUNCHES`` (all three on the ring kernel), two calls equal
-   bit for bit, the PR 12 kernel (private launcher) held to the same
-   tolerance; float32 and scan tolerances from the reference's kernel
-   tests, bf16 flash within ``bf16_error_bound`` (derived from bf16
-   rounding); what ``-Xptxas -v`` said of the ``wgmma`` kernel and of the
-   ring scan's planned instance (registers, spills, shared memory);
-   CUDA-event times of kernel, plain version and, for flash,
-   ``scaled_dot_product_attention`` beside the bound, at the two bf16
-   shapes the PR 12 ``mma.sync`` kernel too (through the private launcher,
-   held to the same bound), and at the scan's two jamba shapes the PR 12
-   scan kernel, both also as device time (CUDA-graph replay);
+6. flash attention and the selective scan against their plain versions on
+   the card (TF32 off): flash at the LM path's shape (4 x 32 query heads
+   over 4 x 8 KV heads, S = 2048, D = 128) in bf16 and in f32, at the
+   prefill shape (S = 512) in bf16, ragged S = 1000, window 256 at S =
+   1024, non-causal, Dv != Dq, and at MLA's heads (40 heads, S 2048, Dq 96,
+   Dv 64) in bf16; the kernel ``flash_attention.plan`` picks for each case
+   printed and checked against ``VARIANT_LAUNCHES`` (every bf16 D = 128
+   case on ``wgmma``, the MLA case on ``wgmma_dv``); the scan at (4, 2048,
+   8192, 16) and (1, 1024, 8192, 16), jamba's two mamba shapes, and at (2,
+   33, 100, 8), the plan ``selective_scan.plan`` picks printed and checked
+   against ``VARIANT_LAUNCHES`` (all three on the ring kernel), two calls
+   equal bit for bit, the first port's scan kernel (``pr12``, private
+   launcher) held to the same tolerance; float32 and scan tolerances from
+   the reference's kernel tests, bf16 flash within ``bf16_error_bound``
+   (derived from bf16 rounding); what ``-Xptxas -v`` said of the ``wgmma``
+   kernel (D 128) and of the ring scan's planned instance (registers,
+   spills, shared memory); CUDA-event times of kernel, plain version and,
+   for flash, ``scaled_dot_product_attention`` beside the bound, at the two
+   bf16 shapes the ``mma.sync`` kernel too (through the private launcher,
+   held to the same bound), and at the scan's two jamba shapes the first
+   scan kernel (``pr12``), both also as device time (CUDA-graph replay);
 7. jamba-v0.1-52b at full width, layers 0-7 (one pattern period: 1
    attention, 7 mamba, 4 MoE layers), float32 weights from a seed, B = 1,
    S = 1024: ``lm.forward`` with the kernel impls against the plain impls
@@ -191,10 +192,11 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    seed 3, B 1 x S ``MLA_S``: every MLA block with ``impl="flash_pallas"``
    against ``chunked`` on the same input (the kernel's attention output
    within ``FA.bf16_error_bound`` of its plain version on the same q, k,
-   v; the block outputs within the bf16 RMS/max limits), layers 0-3 again
-   in float32 (``FLASH_F32_TOL``, ``MLA_F32_TOL``); the scoring forward
-   and ``lm.prefill`` on the kernel impl, each launching ``cuda_core``
-   once per layer and ``wgmma`` never (Dq 96 != Dv 64); prefill, then
+   v; the block outputs within the bf16 RMS/max limits; each block's call
+   on ``wgmma_dv``), layers 0-3 again in float32 (``FLASH_F32_TOL``,
+   ``MLA_F32_TOL``; on ``cuda_core``); the scoring forward and
+   ``lm.prefill`` on the kernel impl, each launching ``wgmma_dv`` once
+   per layer and no other flash kernel (Dq 96, Dv 64); prefill, then
    ``MLA_GEN`` absorbed decode steps over the compressed cache (no
    launch), the greedy tokens against a chunked bf16 scoring pass over
    the same sequence (a token may differ only at a near-tie of the
@@ -206,18 +208,23 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    + 32 teacher-forced decode steps (``LOGITS_TOL``), bf16 encode,
    prefill and decode times, 3 ``train_loop`` steps with zero frames, no
    launch; (c) B2 at MLA's prefill shape (40 heads, S 2048, Dq 96, Dv 64,
-   bf16, causal): the kernel, its plain version and
+   bf16, causal): the ``wgmma_dv`` kernel and the ``cuda_core`` kernel it
+   replaced there (private launcher), each within ``FA.bf16_error_bound``
+   of the plain version, the plain version and
    ``scaled_dot_product_attention`` (default dispatch, and each backend
    alone or why it refused), CUDA events and device time, beside the
-   bound; (d) ``launch.steps.abstract_train_state`` of all 10 archs on
-   the ``meta`` device: parameter counts (less the leaves
-   ``UNCOUNTED_LEAVES``, equal to ``cfg.n_params()``), training-state
-   bytes, no CUDA byte allocated and host memory grown by < 256 MiB;
+   FLOP bound and the exponentials' floor, with what ``-Xptxas -v`` said
+   of the ``wgmma_dv`` instance; (d)
+   ``launch.steps.abstract_train_state`` of all 10 archs on the ``meta``
+   device: parameter counts (less the leaves ``UNCOUNTED_LEAVES``, equal
+   to ``cfg.n_params()``), training-state bytes, no CUDA byte allocated
+   and host memory grown by < 256 MiB;
 
 each phase's time and the whole script's, then one ``{"kernels": [...]}``
-line, the card line again, and as the last line ``{"ok": true, "device":
-{...}}``.  It needs
-one card; without one it exits non-zero before printing any result.
+line (B2's ``wgmma_dv`` instance a row of its own, with the minicpm3-4b
+path's launches), the card line again, and as the last line ``{"ok":
+true, "device": {...}}``.  It needs one card; without one it exits
+non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -253,6 +260,10 @@ FP32_FLOP_PER_S = 67e12    # CUDA cores (same data sheet; an FMA counts as two)
 # SMs at 1.98 GHz)
 EXP_PER_S = 132 * 16 * 1.98e9
 BLOCK = 128            # the blocked engine's block size
+# the flash kernel's two wgmma instances, as nvcc mangles them (D 128;
+# MLA's Dq 96, Dv 64)
+WGMMA_128 = "flash_attention_wgmma_kernelILi128ELi128E"
+WGMMA_DV = "flash_attention_wgmma_kernelILi96ELi64E"
 
 # -- the LM path: jamba-v0.1-52b at full width, one pattern period --------
 LM_ARCH = "jamba_v01_52b"
@@ -934,6 +945,9 @@ def lm_kernel_phase(FA, SS, dev):
         if dtype == torch.bfloat16 and dq == dv == D:
             check(variant == "wgmma", f"flash {label}: {variant} on a bf16 "
                                       f"D = {D} case, not wgmma")
+        if dtype == torch.bfloat16 and (dq, dv) in FA.WGMMA_DV_HEAD_DIMS:
+            check(variant == "wgmma_dv", f"flash {label}: {variant} on a "
+                                         f"bf16 {dq}/{dv} case, not wgmma_dv")
         want = FA.flash_attention_torch(q, k, v, causal=causal,
                                         window=window)
         if dtype == torch.float32:
@@ -994,9 +1008,9 @@ def lm_kernel_phase(FA, SS, dev):
 
     log = _build.library_path(FA.SOURCE).with_suffix(".log").read_text()
     smem = _build.load(FA.SOURCE, FA._bind).flash_attention_wgmma_smem_bytes()
-    print(f"flash_attention_wgmma_kernel, nvcc -Xptxas -v: "
-          f"{ptxas_summary(log, 'flash_attention_wgmma_kernel')}; dynamic "
-          f"shared memory {smem} B", flush=True)
+    print(f"flash_attention_wgmma_kernel (D 128), nvcc -Xptxas -v: "
+          f"{ptxas_summary(log, WGMMA_128)}; dynamic shared memory {smem} B",
+          flush=True)
     # the path shape: B x H query heads over B x KV key/value heads
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, err = flash_case("path shape", SCORE_B * H, SCORE_B * KV,
@@ -1031,6 +1045,8 @@ def lm_kernel_phase(FA, SS, dev):
         flash_case("window 256", 8, 2, 1024, D, D, dtype, window=256)
         flash_case("non-causal", 8, 2, 1000, D, D, dtype, causal=False)
         flash_case("Dv != Dq", 8, 2, 1024, D, 64, dtype)
+    # MLA's heads (minicpm3-4b: 40 heads, Dq 96, Dv 64) at the scoring S
+    flash_case("MLA heads", 40, 40, SCORE_S, 96, 64, torch.bfloat16)
 
     # the scan at jamba's two mamba shapes (scoring, the float32 check),
     # then a ragged one
@@ -2495,7 +2511,8 @@ def mla_blocks(FA, params, cfg, toks, dtype, n_layers=None) -> None:
     v (bf16: within ``FA.bf16_error_bound``; float32: ``FLASH_F32_TOL``),
     and the block outputs (bf16: RMS of kernel - chunked within 2^-7 of the
     chunked output's RMS, the largest within 2^-6 of its largest, as
-    ``bf16_agreement``; float32: ``MLA_F32_TOL``)."""
+    ``bf16_agreement``; float32: ``MLA_F32_TOL``).  Each block's kernel
+    call runs ``wgmma_dv`` in bf16 and ``cuda_core`` in float32."""
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     rms = lambda t: float(t.float().square().mean().sqrt())  # noqa: E731
@@ -2503,6 +2520,7 @@ def mla_blocks(FA, params, cfg, toks, dtype, n_layers=None) -> None:
     pos = torch.arange(x.shape[1], device=x.device)[None]
     worst_attn, worst_block = 0.0, 0.0
     layers = itertools.islice(lm._layers(params, dtype), n_layers)
+    before = dict(FA.VARIANT_LAUNCHES)
     with FlashSpy(FA) as spy:
         for i, (layer, lp) in enumerate(layers):
             h = L.norm(cfg.norm, x, lp["ln1"])
@@ -2537,14 +2555,20 @@ def mla_blocks(FA, params, cfg, toks, dtype, n_layers=None) -> None:
             del q, k, v, out, want, kern, plain
             x = lm._layer_apply(cfg, layer.kind, layer.is_moe, lp, x, pos,
                                 None, "chunked", 1024)[0]
+    ran = {n: FA.VARIANT_LAUNCHES[n] - before[n] for n in FA.VARIANTS}
+    variant = "wgmma_dv" if dtype == torch.bfloat16 else "cuda_core"
+    check(ran == {n: (i + 1) * (n == variant) for n in FA.VARIANTS},
+          f"MLA blocks 0-{i} ({dtype}): flash launches {ran}, want "
+          f"{variant} once a block")
     if dtype == torch.bfloat16:
         print(f"MLA blocks 0-{i}, bf16, S {toks.shape[1]}: "
-              f"flash_pallas vs chunked on the same input; kernel attention "
+              f"flash_pallas ({variant}) vs chunked on the same input; kernel "
+          f"attention "
               f"vs plain at most {worst_attn:.3f} of FA.bf16_error_bound, "
               f"block outputs at most {worst_block:.3f} of the RMS/max "
               f"limits", flush=True)
     else:
-        print(f"MLA blocks 0-{i}, float32: kernel attention "
+        print(f"MLA blocks 0-{i}, float32 ({variant}): kernel attention "
               f"within {FLASH_F32_TOL} of plain, block outputs within "
               f"{MLA_F32_TOL} of chunked, in every layer", flush=True)
 
@@ -2620,7 +2644,7 @@ def minicpm3_phase(FA, dev) -> int:
           f"{a.qk_rope_head_dim}, dv {dv}, {n / 1e9:.3f} G parameters, bf16,"
           f" from seed 3 on the card in {time.perf_counter() - t:.1f} s; "
           f"flash plan at Dq {dq}, Dv {dv}, bf16: {variant}", flush=True)
-    check(variant == "cuda_core", f"MLA's flash plan is {variant}")
+    check(variant == "wgmma_dv", f"MLA's flash plan is {variant}")
 
     # per block, bf16 at full depth, then float32 on layers 0-3
     with torch.no_grad():
@@ -2641,8 +2665,8 @@ def minicpm3_phase(FA, dev) -> int:
         plain = lm.forward(params, cfg, toks)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t
-    want = {"wgmma": 0, "cuda_core": base.n_layers, "mma_sync": 0,
-            "plain": 0}
+    want = dict({n: base.n_layers * (n == "wgmma_dv") for n in FA.VARIANTS},
+                plain=0)
     check(score == want, f"scoring forward: launches {score}, want {want}")
     check(bool(torch.isfinite(kern).all()), "minicpm3 scoring logits finite")
     d = (kern.float() - plain.float())
@@ -2677,7 +2701,7 @@ def minicpm3_phase(FA, dev) -> int:
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t
         check(dict(FA.VARIANT_LAUNCHES, plain=FA.PLAIN_CALLS[
-            "flash_attention"]) == pre == dict(want, cuda_core=base.n_layers),
+            "flash_attention"]) == pre == want,
               f"prefill and decode: launches {pre} (decode must launch "
               f"nothing)")
         cache_b = sum(c[k].numel() * c[k].element_size() for c in cache
@@ -2715,7 +2739,7 @@ def minicpm3_phase(FA, dev) -> int:
                  time.perf_counter() - t)
     check(FA.LAUNCHES["flash_attention"] + FA.PLAIN_CALLS[
         "flash_attention"] == 0, "training launched flash attention")
-    return score["cuda_core"] + pre["cuda_core"]
+    return score["wgmma_dv"] + pre["wgmma_dv"]
 
 
 def whisper_phase(FA, dev) -> None:
@@ -2811,14 +2835,27 @@ def sdpa_attempt(fn):
             return "refused: " + ("; ".join(why) or str(e).splitlines()[0])
 
 
+def exp_floor(q, k, causal: bool) -> float:
+    """Least ms of the softmax's exponentials on these inputs: one per
+    score the mask leaves, at the special-function units' rate."""
+    bh, s = q.shape[:2]
+    exps = bh * (s * (s + 1) // 2 if causal else s * k.shape[1])
+    return exps / EXP_PER_S * 1e3
+
+
 def mla_flash_timing(FA, dev) -> dict:
-    """14 (c): B2 at MLA's prefill shape, bf16, causal: the kernel, its
-    plain version and ``scaled_dot_product_attention`` (default dispatch,
-    then each backend alone), CUDA events and device time (CUDA-graph
-    replay), beside the bound."""
+    """14 (c): B2 at MLA's prefill shape, bf16, causal: the ``wgmma_dv``
+    kernel (held within ``FA.bf16_error_bound`` of its plain version),
+    the ``cuda_core`` kernel it replaced on this path (private launcher,
+    held the same way), the plain version and
+    ``scaled_dot_product_attention`` (default dispatch, then each backend
+    alone), CUDA events and device time (CUDA-graph replay), beside the
+    FLOP bound and the exponentials' floor; what ``-Xptxas -v`` said of
+    the kernel."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
     a = get_config(MLA_ARCH).attention
     h, dq, dv = a.n_heads, a.qk_nope_head_dim + a.qk_rope_head_dim, \
         a.v_head_dim
@@ -2826,20 +2863,36 @@ def mla_flash_timing(FA, dev) -> dict:
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
         torch.bfloat16) for shape in ((h, MLA_S, dq), (h, MLA_S, dq),
                                       (h, MLA_S, dv)))
-    before = dict(FA.VARIANT_LAUNCHES)
-    out = FA.flash_attention(q, k, v, causal=True)
-    ran = [n for n in FA.VARIANTS if FA.VARIANT_LAUNCHES[n] != before[n]]
-    check(ran == ["cuda_core"], f"B2 at MLA's shape ran {ran}")
+    log = _build.library_path(FA.SOURCE).with_suffix(".log").read_text()
+    lib = _build.load(FA.SOURCE, FA._bind)
+    print(f"flash_attention_wgmma_kernel (Dq {dq}, Dv {dv}), nvcc -Xptxas "
+          f"-v: {ptxas_summary(log, WGMMA_DV)}; dynamic shared memory "
+          f"{lib.flash_attention_wgmma_dv_smem_bytes()} B, "
+          f"{lib.flash_attention_wgmma_dv_stages()} k/v stages", flush=True)
     want = FA.flash_attention_torch(q, k, v, causal=True)
-    diff = (out.float() - want.float()).abs()
-    worst = float((diff / FA.bf16_error_bound(q, k, v, causal=True)).max())
-    err = float(diff.max())
-    check(worst <= 1.0, f"B2 at MLA's shape: {worst} of the bf16 bound")
-    del out, want, diff
+    bnd = FA.bf16_error_bound(q, k, v, causal=True)
+
+    def held(out, what):
+        diff = (out.float() - want.float()).abs()
+        worst = float((diff / bnd).max())
+        check(worst <= 1.0, f"B2 at MLA's shape, {what}: {worst} of the "
+                            f"bf16 bound")
+        return float(diff.max()), worst
+
+    before = dict(FA.VARIANT_LAUNCHES)
+    err, worst = held(FA.flash_attention(q, k, v, causal=True), "wgmma_dv")
+    ran = [n for n in FA.VARIANTS if FA.VARIANT_LAUNCHES[n] != before[n]]
+    check(ran == ["wgmma_dv"], f"B2 at MLA's shape ran {ran}")
+    old = lambda: FA._launch(q, k, v, True, 0, None,  # noqa: E731
+                             "cuda_core")
+    _, old_worst = held(old(), "cuda_core")
+    del want, bnd
     kernel = lambda: FA.flash_attention(q, k, v, causal=True)  # noqa: E731
     plain = lambda: FA.flash_attention_torch(q, k, v,  # noqa: E731
                                              causal=True)
     ms, dev_ms = cuda_ms(kernel, 20), graph_ms([kernel], 20)
+    old_ms, old_dev_ms = cuda_ms(old, 10), graph_ms([old], 10)
+    ms2 = cuda_ms(kernel, 20)
     plain_ms, plain_dev_ms = cuda_ms(plain, 3), graph_ms([plain], 3)
     q4, k4, v4 = (t[None] for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -2859,22 +2912,29 @@ def mla_flash_timing(FA, dev) -> dict:
     else:
         backends["default"] = refusal
     bms, by = flash_bound(q, k, v, causal=True)
-    lib = ("refused" if lib_ms is None else
-           f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f}; kernel / SDPA "
-           f"{ms / lib_ms:.2f})")
+    floor = exp_floor(q, k, causal=True)
+    lib_txt = ("refused" if lib_ms is None else
+               f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f}; kernel / SDPA "
+               f"{ms / lib_ms:.2f})")
     print(f"flash_attention at MLA's prefill shape (BH {h}, S {MLA_S}, Dq "
-          f"{dq}, Dv {dv}, bf16, causal) [cuda_core]: kernel {ms:.4f} ms "
-          f"(device {dev_ms:.4f}; {100 * bms / ms:.1f}% of bound {bms:.4f} "
-          f"ms, {by}); plain {plain_ms:.3f} ms (device {plain_dev_ms:.3f}); "
-          f"scaled_dot_product_attention default {lib}; by backend "
-          f"{backends}; max |kernel - plain| {err:.3e} ({worst:.3f} of the "
-          f"bf16 bound)", flush=True)
+          f"{dq}, Dv {dv}, bf16, causal) [wgmma_dv]: kernel {ms:.4f} ms, "
+          f"again {ms2:.4f} (device {dev_ms:.4f}; {100 * bms / ms:.1f}% of "
+          f"bound {bms:.4f} ms, {by}; exponentials' floor {floor:.4f} ms); "
+          f"cuda_core kernel {old_ms:.4f} ms (device {old_dev_ms:.4f}; "
+          f"{old_ms / ms:.2f}x the wgmma_dv kernel's time; {old_worst:.3f} "
+          f"of the bf16 bound); plain {plain_ms:.3f} ms (device "
+          f"{plain_dev_ms:.3f}); scaled_dot_product_attention default "
+          f"{lib_txt}; by backend {backends}; max |kernel - plain| "
+          f"{err:.3e} ({worst:.3f} of the bf16 bound)", flush=True)
     return dict(label="MLA prefill shape", shape=[h, MLA_S, dq, dv, h],
-                variant="cuda_core", ms=ms, device_ms=dev_ms,
+                variant="wgmma_dv", ms=ms, device_ms=dev_ms,
+                old_kernel_ms=old_ms, old_kernel_device_ms=old_dev_ms,
                 plain_ms=plain_ms, plain_device_ms=plain_dev_ms,
                 library_ms=lib_ms, library_device_ms=lib_dev_ms,
                 sdpa_backends=backends, bound_ms=bms, bound_by=by,
-                max_abs_err=err, err_over_bound=worst)
+                exp_floor_ms=floor, max_abs_err=err, err_over_bound=worst,
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:32")
 
 
 def leaf_items(tree, prefix=()):
@@ -2930,9 +2990,9 @@ def dry_run_phase() -> None:
 
 def mla_phase(modules, dev) -> tuple:
     """Phase 14: (a) minicpm3-4b, (b) whisper-small, (c) B2 at MLA's shape,
-    (d) the dry run.  Returns (B2's case at MLA's shape, the flash kernel's
-    launches on the minicpm3 path); the counters are zeroed before each
-    path and read after it."""
+    (d) the dry run.  Returns (B2's ``wgmma_dv`` row, from its timing at
+    MLA's shape, and its launches on the minicpm3 path); the counters are
+    zeroed before each path and read after it."""
     FA = modules[1]
     for mod in modules:
         mod.reset_counts()
@@ -2960,13 +3020,16 @@ def mla_phase(modules, dev) -> tuple:
 
 # what a kernel's row may carry beside the contract's keys (the chosen
 # kernel of the GEMM, flash attention and the scan, the scan's plan, device
-# times, the mma.sync kernels' and the PR 12 scan kernel's times, every
-# case; the closure's full mode and dense bound, and the time of the
-# general-kernel path each of the blocked engine's entries replaced)
+# times, the mma.sync kernels', the cuda_core kernel's (at MLA's heads) and
+# the first scan kernel's (``pr12``) times, every case; the closure's full
+# mode and dense bound, and the time of the general-kernel path each of the
+# blocked engine's entries replaced; the exponentials' floor and SDPA by
+# backend)
 EXTRA_KEYS = ("variant", "plan", "launch_ms", "device_ms",
               "library_device_ms", "old_kernel_ms", "old_kernel_device_ms",
               "pr12_ms", "pr12_device_ms", "cases", "full_mode_ms",
-              "dense_bound_ms", "old_path_ms", "launches_by_path")
+              "dense_bound_ms", "old_path_ms", "exp_floor_ms",
+              "sdpa_backends")
 
 
 def main() -> int:
@@ -3161,13 +3224,11 @@ def main() -> int:
     phase_done("13 (training)")
 
     # -- 14. MLA, whisper, the dry run ---------------------------------------
-    case, mla_launches = mla_phase((K, FA, SS, SG), dev)
-    flash = rows["flash_attention"]
-    flash["cases"].append(case)
-    flash["launches_by_path"] = {
-        "jamba-v0.1 layers 0-7 (phases 7-8)": launches["flash_attention"],
-        "minicpm3-4b (phase 14)": mla_launches}
-    launches["flash_attention"] += mla_launches
+    # B2's wgmma_dv instance is a row of its own: its launches are the
+    # minicpm3-4b path's, flash_attention's (wgmma) jamba's
+    row, launches["flash_attention_wgmma_dv"] = mla_phase((K, FA, SS, SG),
+                                                          dev)
+    rows["flash_attention_wgmma_dv"] = row
     phase_done("14 (MLA, whisper, the dry run)")
     print(f"-- the whole script took {time.perf_counter() - start:.1f} s",
           flush=True)

@@ -30,8 +30,11 @@
 //   * wgmma -- bfloat16, Dq == Dv == 128, 16-byte-aligned q, k, v, o (the
 //     LM path): TMA + wgmma, warp-specialised (see
 //     flash_attention_wgmma_kernel below).
-//   * cuda_core -- everything else (float32, other head dims, Dv != Dq,
-//     unaligned bfloat16): one thread block per (head, 64-row query tile),
+//   * wgmma_dv -- the same kernel at Dq != Dv: bfloat16, (Dq, Dv) = (96,
+//     64), MLA's heads (minicpm3-4b's prefill and scoring), 16-byte
+//     aligned; its own entry point.
+//   * cuda_core -- everything else (float32, other head dims, unaligned
+//     bfloat16): one thread block per (head, 64-row query tile),
 //     heavy (late) causal tiles launched first.  Each of the 256 threads
 //     owns a 4 x 4 block of the score tile and a 4-row strip of the output
 //     tile; q and k tiles sit transposed in shared memory so each d step is
@@ -44,7 +47,7 @@
 //     copies); reachable only through its own entry point, kept as the
 //     timed yardstick of the wgmma kernel.
 //
-// All three: the softmax runs in base 2 with scale * log2(e) folded in,
+// All of them: the softmax runs in base 2 with scale * log2(e) folded in,
 // and a block walks only the key tiles from the first one inside the
 // window up to the diagonal -- tiles wholly outside the mask are skipped,
 // not computed and masked.  Skipping changes nothing: masked scores are
@@ -471,35 +474,47 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 with Dq == Dv == 128, 16-byte aligned (the LM path): TMA + wgmma,
-// warp-specialised
+// bf16, 16-byte aligned, (Dq, Dv) = (128, 128) (the LM path) or (96, 64)
+// (MLA): TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 //
 // A persistent grid of at most one 384-thread block per SM walks the work
 // items -- (128-row query tile, query head) -- heaviest causal tiles first,
-// heads fastest, so the items in flight share key/value heads in the L2.
+// heads fastest, so the items in flight share key/value heads in the L2,
+// every other round of items dealt out to the blocks backwards.
 // A producer warpgroup (registers lowered by setmaxnreg) has one thread
 // issue TMA; two consumer warpgroups (registers raised) own 64 query rows
 // each.  q, k, v and o are read and written through 3-D tensor maps (D, S,
 // heads) in the 128-byte swizzle, as boxes of 64 columns (the widest a
 // swizzled box may be): TMA zero-fills rows past S within a head and clips
 // stores at Sq, where a 2-D (heads * S, D) map would read, and overwrite,
-// the next head's rows.  Shared memory (192 KB): two q tiles (128 x 128,
-// 32 KB each, one per item in turn, so the next item's q loads under this
-// one) and a ring of STAGES 128-key tiles of k and of v (32 KB each), every
-// slot with a full and an empty mbarrier; the ring runs on across items.
-// Per key tile, a consumer warpgroup computes S = q k^T with wgmma
-// m64n128k16 (both operands K-major in shared memory, 8 k steps over D; S
-// in 64 float32 registers a thread), masks it only where the tile crosses
-// the diagonal, the window's edge or Sk, runs the online softmax on the
-// accumulator fragments (row max and sum reduced across the quad), rounds P
-// to bf16 pairs in registers -- a 16-column slice of the accumulator is
-// laid out as a wgmma A fragment -- and adds P v with wgmma m64n128k16 from
-// registers, v read N-major through the transpose bit.  The two warpgroups
-// take turns issuing their products, so one's softmax runs under the
-// other's products.  The epilogue divides by l, stages the warpgroup's 64
-// rows in its half of the item's q buffer (its q k^T are done) and writes
-// them with TMA stores that drain under the next item.
+// the next head's rows.  Shared memory (Cfg below): two q tiles (128 rows,
+// one per item in turn, so the next item's q loads under this one) and a
+// ring of STAGES 128-key tiles of k and of v, every slot with a full and an
+// empty mbarrier; the ring runs on across items.  Per key tile, a consumer
+// warpgroup computes S = q k^T with wgmma m64n128k16 (both operands K-major
+// in shared memory, Dq / 16 k steps; S in 64 float32 registers a thread),
+// masks it only where the tile crosses the diagonal, the window's edge or
+// Sk, runs the online softmax on the accumulator fragments (row max and sum
+// reduced across the quad), rounds P to bf16 pairs in registers -- a
+// 16-column slice of the accumulator is laid out as a wgmma A fragment --
+// and adds P v with wgmma m64n{Dv}k16 from registers, v read N-major
+// through the transpose bit.  The two warpgroups take turns issuing their
+// products, so one's softmax runs under the other's products.  The epilogue
+// divides by l, stages the warpgroup's 64 rows in its half of the item's q
+// buffer (its q k^T are done) and writes them with TMA stores that drain
+// under the next item.
+//
+// At MLA's heads (Dq 96, Dv 64) the work per score is 160 multiply-adds,
+// not 256, while the softmax's exponentials stay one per score: they bound
+// the kernel nearly as much as the products do (exp floor 0.0201 ms against
+// the 0.0272 ms FLOP bound at 40 heads x S 2048), so the turn-taking that
+// hides one warpgroup's softmax under the other's products matters more.
+// q and k rows are 192 bytes: a tile is two 64-column boxes and TMA
+// zero-fills columns 96-127 of the second (the barrier counts them); q k^T
+// issues 6 k steps, never multiplying the zero columns.  v and o are one
+// box a tile; P v is m64n64k16, the accumulator 32 registers a thread.  The
+// 16 KB v tiles leave room for a ring of 3 stages (2 at 128 / 128).
 //
 // Measured and rejected on an H100 (PERF.md): issuing the next tile's
 // q k^T with this tile's P v and running the softmax under them (no
@@ -507,18 +522,33 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
 // (slower: every block filled and drained its pipeline alone).
 
 namespace wgf {
-constexpr int HD = 128;                    // Dq == Dv
 constexpr int BQ = 128;                    // query rows per work item
 constexpr int BK = 128;                    // keys per tile
-constexpr int STAGES = 2;                  // k and v ring depth
 constexpr int THREADS = 384;               // producer + 2 consumer warpgroups
 constexpr int BOX_COLS = 64;               // 128-byte-swizzled box width
 constexpr int BOX_BYTES = 128 * 128;       // 128 rows x 128 bytes
-constexpr int TILE_BYTES = 2 * BOX_BYTES;  // 128 x 128 bf16, two boxes
-constexpr int K_OFF = 2 * TILE_BYTES;      // two q tiles first
-constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
-constexpr int BAR_OFF = V_OFF + STAGES * TILE_BYTES;
-constexpr int SMEM_BYTES = BAR_OFF + 8 * (4 + 4 * STAGES) + 1024;
+constexpr int SMEM_MAX = 232448;           // a block's shared memory, sm_90
+
+// the shared-memory plan of the instance with head dims DQ (q, k) and DV
+// (v, o): q and k tiles of ceil(DQ / 64) boxes, v tiles of DV / 64; two q
+// tiles, then a ring of k and v tiles as deep as fits, then the barriers
+template <int DQ, int DV>
+struct Cfg {
+  static_assert(DQ % 16 == 0 && DV % BOX_COLS == 0 && DV <= DQ,
+                "q k^T takes 16-deep k steps; o is staged in whole boxes "
+                "of the q buffer");
+  static constexpr int QK_BOXES = (DQ + BOX_COLS - 1) / BOX_COLS;
+  static constexpr int V_BOXES = DV / BOX_COLS;
+  static constexpr int QK_TILE = QK_BOXES * BOX_BYTES;
+  static constexpr int V_TILE = V_BOXES * BOX_BYTES;
+  static constexpr int STAGES =
+      (SMEM_MAX - 1024 - 2 * QK_TILE - 8 * 4) / (QK_TILE + V_TILE + 8 * 4);
+  static constexpr int K_OFF = 2 * QK_TILE;  // two q tiles first
+  static constexpr int V_OFF = K_OFF + STAGES * QK_TILE;
+  static constexpr int BAR_OFF = V_OFF + STAGES * V_TILE;
+  static constexpr int SMEM_BYTES = BAR_OFF + 8 * (4 + 4 * STAGES) + 1024;
+  static_assert(STAGES >= 2 && SMEM_BYTES <= SMEM_MAX, "shared memory");
+};
 }  // namespace wgf
 
 // exp2 on the special-function unit, one instruction (2^-22 relative
@@ -599,10 +629,11 @@ __device__ __forceinline__ void tile_softmax(float (&s)[64], float (&m)[2],
 }
 
 // o's rows rescaled by alpha (the fragment layout of online_softmax)
-__device__ __forceinline__ void rescale(float (&o)[64],
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N],
                                         const float (&alpha)[2]) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < N / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e / 2];
 }
@@ -619,13 +650,16 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[8][4],
       p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
-// S = q k^T (64 x 128 keys): 8 k steps over D, both operands K-major; a
-// step is 32 bytes along the swizzled rows of box kk / 4 (16 KB apart)
+// S = q k^T (64 x 128 keys): STEPS = Dq / 16 k steps, both operands
+// K-major; a step is 32 bytes along the swizzled rows of box kk / 4 (16 KB
+// apart).  At Dq 96 the last box's columns 96-127 are TMA's zero fill and
+// are not multiplied.
+template <int STEPS>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q,
                                          uint32_t k) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < wgf::HD / 16; ++kk) {
+  for (int kk = 0; kk < STEPS; ++kk) {
     const uint32_t off = (kk / 4) * wgf::BOX_BYTES + (kk % 4) * 32;
     const uint64_t dq = sw128_desc(q + off, 16, 1024);
     const uint64_t dk = sw128_desc(k + off, 16, 1024);
@@ -637,9 +671,12 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q,
   wgmma_commit();
 }
 
-// o += P v: v's tile is (keys, D), N-major, read through the transpose bit;
-// k step kk is 16 key rows, 2048 bytes down both 64-column boxes
-__device__ __forceinline__ void issue_pv(float (&o)[64],
+// o += P v: v's tile is (keys, Dv), N-major, read through the transpose
+// bit; k step kk is 16 key rows, 2048 bytes down each 64-column box (Dv
+// 128: two boxes BOX_BYTES apart, the leading offset; Dv 64: one box, the
+// m64n64k16 product)
+template <int N>
+__device__ __forceinline__ void issue_pv(float (&o)[N],
                                          const uint32_t (&p)[8][4],
                                          uint32_t v) {
   wgmma_fence();
@@ -669,6 +706,17 @@ struct Item {
   }
 };
 
+// the index of this block's n-th work item: the items are dealt out in
+// rounds of gridDim.x, every other round backwards, so a block that took
+// one of a round's heaviest items takes one of the next round's lightest
+// and the blocks' key tiles even out (at MLA's shape, 640 items on 132 SMs,
+// the busiest block walks 43 tiles, not 49 as when every round runs
+// forwards); the item's tiles, and so its bits, do not depend on the block
+__device__ __forceinline__ int item_of(int n) {
+  return n * gridDim.x + ((n & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
+template <int DQ, int DV>
 __global__ void __launch_bounds__(wgf::THREADS, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
@@ -676,15 +724,16 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_o,
                              int bh_count, int group, int Sq, int Sk,
                              int causal, int window, float scale2) {
-  constexpr int STAGES = wgf::STAGES, BOX_COLS = wgf::BOX_COLS;
-  constexpr int BOX_BYTES = wgf::BOX_BYTES, TILE_BYTES = wgf::TILE_BYTES;
+  using C = wgf::Cfg<DQ, DV>;
+  constexpr int STAGES = C::STAGES, BOX_COLS = wgf::BOX_COLS;
+  constexpr int BOX_BYTES = wgf::BOX_BYTES;
   extern __shared__ uint8_t smem_fa[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to that
   const uint32_t base = (smem_u32(smem_fa) + 1023u) & ~1023u;
-  auto qs = [&](int b) { return base + b * TILE_BYTES; };
-  auto ks = [&](int s) { return base + wgf::K_OFF + s * TILE_BYTES; };
-  auto vs = [&](int s) { return base + wgf::V_OFF + s * TILE_BYTES; };
-  const uint32_t bars = base + wgf::BAR_OFF;
+  auto qs = [&](int b) { return base + b * C::QK_TILE; };
+  auto ks = [&](int s) { return base + C::K_OFF + s * C::QK_TILE; };
+  auto vs = [&](int s) { return base + C::V_OFF + s * C::V_TILE; };
+  const uint32_t bars = base + C::BAR_OFF;
   auto q_full = [&](int b) { return bars + 8 * b; };
   auto q_empty = [&](int b) { return bars + 8 * (2 + b); };
   auto k_full = [&](int s) { return bars + 8 * (4 + s); };
@@ -712,29 +761,30 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (wgid == 0) {
     // producer: one thread loads each item's q into the q buffer of the
     // item before last, once its o stores have read it, and keeps the k
-    // and v rings full across items
+    // and v rings full across items.  Each barrier expects whole boxes:
+    // TMA counts the zero-filled columns and rows too.
     setmaxnreg_dec<40>();
     if (t != 0) return;
     int g = 0, n = 0;               // ring tiles and items so far
-    for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
+    for (int w = item_of(0); w < items; w = item_of(++n)) {
       const Item it(w, bh_count, group, Sq, Sk, causal, window);
       const int b = n % 2;
       mbar_wait(q_empty(b), ((n / 2) & 1) ^ 1);
-      mbar_expect_tx(q_full(b), TILE_BYTES);
-      for (int j = 0; j < 2; ++j)
+      mbar_expect_tx(q_full(b), C::QK_TILE);
+      for (int j = 0; j < C::QK_BOXES; ++j)
         tma_load_3d(qs(b) + j * BOX_BYTES, &map_q, j * BOX_COLS, it.r0, it.bh,
                     q_full(b));
       for (int i = 0; i < it.ntiles; ++i, ++g) {
         const int s = g % STAGES, phase = (g / STAGES) & 1;
         const int c0 = it.first + i * wgf::BK;
         mbar_wait(k_empty(s), phase ^ 1);
-        mbar_expect_tx(k_full(s), TILE_BYTES);
-        for (int j = 0; j < 2; ++j)
+        mbar_expect_tx(k_full(s), C::QK_TILE);
+        for (int j = 0; j < C::QK_BOXES; ++j)
           tma_load_3d(ks(s) + j * BOX_BYTES, &map_k, j * BOX_COLS, c0, it.kvh,
                       k_full(s));
         mbar_wait(v_empty(s), phase ^ 1);
-        mbar_expect_tx(v_full(s), TILE_BYTES);
-        for (int j = 0; j < 2; ++j)
+        mbar_expect_tx(v_full(s), C::V_TILE);
+        for (int j = 0; j < C::V_BOXES; ++j)
           tma_load_3d(vs(s) + j * BOX_BYTES, &map_v, j * BOX_COLS, c0, it.kvh,
                       v_full(s));
       }
@@ -754,7 +804,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int c = wgid - 1;
   const int warp = t / 32, lane = t % 32;
   const int rw = 16 * warp + lane / 4, col = 2 * (lane % 4);
-  float o[64], s_acc[64];
+  float o[DV / 2], s_acc[64];
   float m[2], l[2], alpha[2];
   uint32_t p[8][4];
   constexpr int PING = 3;            // named barriers 3 and 4 (1, 2: epilogue)
@@ -763,19 +813,19 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (c == 1) your_turn();           // warpgroup 0 goes first
   int g = 0, n = 0;
-  for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
+  for (int w = item_of(0); w < items; w = item_of(++n)) {
     const Item it(w, bh_count, group, Sq, Sk, causal, window);
     const int lo = it.r0 + 64 * c, row = lo + rw;
     const uint32_t qa = qs(n % 2) + c * 64 * 128;  // its rows of q's boxes
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     m[0] = m[1] = NEG_F;
     l[0] = l[1] = 0.f;
 
     mbar_wait(q_full(n % 2), (n / 2) & 1);
     mbar_wait(k_full(g % STAGES), (g / STAGES) & 1);
     my_turn();
-    issue_qk(s_acc, qa, ks(g % STAGES));
+    issue_qk<DQ / 16>(s_acc, qa, ks(g % STAGES));
     your_turn();
     wgmma_wait<0>();
     fence_regs(s_acc);
@@ -800,7 +850,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<0>();
       fence_regs(o);
       if (lane == 0) mbar_arrive(v_empty(sp));
-      issue_qk(s_acc, qa, ks(s));
+      issue_qk<DQ / 16>(s_acc, qa, ks(s));
       your_turn();
       wgmma_wait<0>();
       fence_regs(s_acc);
@@ -824,14 +874,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
     // epilogue: o / l cast to bf16 into this warpgroup's rows of the item's
     // q buffer (its q k^T are done; 128-byte swizzle: 16-byte chunk j % 8
-    // of row r sits at chunk (j % 8) ^ (r % 8)), then two TMA stores,
-    // clipped at Sq, that drain under the next item
+    // of row r sits at chunk (j % 8) ^ (r % 8)), then one TMA store a
+    // 64-column box, clipped at Sq, that drains under the next item
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = rw + 8 * h;
       const float lv = fmaxf(l[h], 1e-30f);   // as the TPU kernel's flush
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         const uint32_t at = qa + (j / 8) * BOX_BYTES + r * 128 +
                             (((j % 8) ^ (r % 8)) * 16) + 4 * (lane % 4);
         const uint32_t bits =
@@ -843,7 +893,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_proxy_async();
     warpgroup_sync(1 + c);
     if (t == 0) {
-      for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < C::V_BOXES; ++j)
         tma_store_3d(&map_o, qa + j * BOX_BYTES, j * BOX_COLS, lo, it.bh);
       tma_store_commit();
     }
@@ -854,15 +904,16 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (t == 0) tma_store_wait_read<0>();
 }
 
-// a contiguous (heads, rows, 128) bf16 tensor as a 3-D map (128, rows,
+// a contiguous (heads, rows, cols) bf16 tensor as a 3-D map (cols, rows,
 // heads), boxes of 64 columns x box_rows rows x 1 head in the 128-byte
-// swizzle; loads zero-fill past every bound, stores clip
-bool encode_heads(CUtensorMap* map, const void* ptr, int heads, int rows,
-                  int box_rows) {
+// swizzle; loads zero-fill past every bound (columns past cols too), stores
+// clip
+bool encode_heads(CUtensorMap* map, const void* ptr, int cols, int heads,
+                  int rows, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t row_bytes = wgf::HD * 2;
-  const cuuint64_t dims[3] = {(cuuint64_t)wgf::HD, (cuuint64_t)rows,
+  const cuuint64_t row_bytes = (cuuint64_t)cols * 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {row_bytes, row_bytes * (cuuint64_t)rows};
   const cuuint32_t box[3] = {(cuuint32_t)wgf::BOX_COLS, (cuuint32_t)box_rows,
@@ -874,32 +925,39 @@ bool encode_heads(CUtensorMap* map, const void* ptr, int heads, int rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int DQ, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  int bh, int group, int Sq, int Sk, int causal, int window,
                  float scale, cudaStream_t stream) {
+  using C = wgf::Cfg<DQ, DV>;
   CUtensorMap mq, mk, mv, mo;
-  if (!encode_heads(&mq, q, bh, Sq, wgf::BQ) ||
-      !encode_heads(&mk, k, bh / group, Sk, wgf::BK) ||
-      !encode_heads(&mv, v, bh / group, Sk, wgf::BK) ||
-      !encode_heads(&mo, o, bh, Sq, 64))
+  if (!encode_heads(&mq, q, DQ, bh, Sq, wgf::BQ) ||
+      !encode_heads(&mk, k, DQ, bh / group, Sk, wgf::BK) ||
+      !encode_heads(&mv, v, DV, bh / group, Sk, wgf::BK) ||
+      !encode_heads(&mo, o, DV, bh, Sq, 64))
     return (int)cudaErrorInvalidValue;
   int device = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flash_attention_wgmma_kernel,
+    e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<DQ, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             wgf::SMEM_BYTES);
+                             C::SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   // persistent: one block per SM at most, each walking items w, w + grid..
   const int64_t items = (int64_t)bh * ((Sq + wgf::BQ - 1) / wgf::BQ);
   if (items > INT32_MAX) return (int)cudaErrorInvalidValue;
   const int grid = items < sms ? (int)items : sms;
-  flash_attention_wgmma_kernel<<<grid, wgf::THREADS, wgf::SMEM_BYTES,
-                                 stream>>>(mq, mk, mv, mo, bh, group, Sq, Sk,
-                                           causal, window, scale * LOG2E);
+  flash_attention_wgmma_kernel<DQ, DV>
+      <<<grid, wgf::THREADS, C::SMEM_BYTES, stream>>>(
+          mq, mk, mv, mo, bh, group, Sq, Sk, causal, window, scale * LOG2E);
   return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* q, const void* k, const void* v, const void* o) {
+  return (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)
+         == 0;
 }
 
 template <typename T>
@@ -952,16 +1010,33 @@ int flash_attention_bf16_wgmma(const void* q, const void* k, const void* v,
                                void* o, int bh, int group, int Sq, int Sk,
                                int Dq, int Dv, int causal, int window,
                                float scale, void* stream) {
-  const bool aligned =
-      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15) == 0;
-  if (!aligned || Dq != wgf::HD || Dv != wgf::HD)
+  if (!aligned16(q, k, v, o) || Dq != 128 || Dv != 128)
     return (int)cudaErrorInvalidValue;
-  return launch_wgmma(q, k, v, o, bh, group, Sq, Sk, causal, window, scale,
-                      (cudaStream_t)stream);
+  return launch_wgmma<128, 128>(q, k, v, o, bh, group, Sq, Sk, causal,
+                                window, scale, (cudaStream_t)stream);
 }
 
 // The wgmma kernel's dynamic shared memory, bytes.
-int flash_attention_wgmma_smem_bytes(void) { return wgf::SMEM_BYTES; }
+int flash_attention_wgmma_smem_bytes(void) {
+  return wgf::Cfg<128, 128>::SMEM_BYTES;
+}
+
+// wgmma_dv, bfloat16: (Dq, Dv) = (96, 64), q, k, v, o 16-byte aligned.
+int flash_attention_bf16_wgmma_dv(const void* q, const void* k, const void* v,
+                                  void* o, int bh, int group, int Sq, int Sk,
+                                  int Dq, int Dv, int causal, int window,
+                                  float scale, void* stream) {
+  if (!aligned16(q, k, v, o) || Dq != 96 || Dv != 64)
+    return (int)cudaErrorInvalidValue;
+  return launch_wgmma<96, 64>(q, k, v, o, bh, group, Sq, Sk, causal, window,
+                              scale, (cudaStream_t)stream);
+}
+
+// The wgmma_dv kernel's dynamic shared memory, bytes, and its ring's depth.
+int flash_attention_wgmma_dv_smem_bytes(void) {
+  return wgf::Cfg<96, 64>::SMEM_BYTES;
+}
+int flash_attention_wgmma_dv_stages(void) { return wgf::Cfg<96, 64>::STAGES; }
 
 // mma_sync, bfloat16: Dq == Dv == 128, q, k, v, o 16-byte aligned.
 int flash_attention_bf16_mma_sync(const void* q, const void* k,
@@ -969,9 +1044,8 @@ int flash_attention_bf16_mma_sync(const void* q, const void* k,
                                   int Sq, int Sk, int Dq, int Dv, int causal,
                                   int window, float scale, void* stream) {
   using bf = __nv_bfloat16;
-  const bool aligned =
-      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15) == 0;
-  if (!aligned || Dq != 128 || Dv != 128) return (int)cudaErrorInvalidValue;
+  if (!aligned16(q, k, v, o) || Dq != 128 || Dv != 128)
+    return (int)cudaErrorInvalidValue;
   return launch_mma<128>((const bf*)q, (const bf*)k, (const bf*)v, (bf*)o, bh,
                          group, Sq, Sk, causal, window, scale,
                          (cudaStream_t)stream);

@@ -253,8 +253,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "n"(TRANS_B));
 }
 
+// the same at N = 64 (32 floats a thread), A from registers: flash
+// attention's P v at Dv = 64
+#define HOPPER_D32(c, d, i)                                                \
+  HOPPER_D8(c, d, i), HOPPER_D8(c, d, i + 8), HOPPER_D8(c, d, i + 16),     \
+      HOPPER_D8(c, d, i + 24)
+#define HOPPER_R32                                                         \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                     \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "           \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HOPPER_R32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : HOPPER_D32("+f", d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TRANS_B));
+}
+
 #undef HOPPER_D8
+#undef HOPPER_D32
 #undef HOPPER_D64
+#undef HOPPER_R32
 #undef HOPPER_R64
 #undef HOPPER_R64_127
 

@@ -28,12 +28,16 @@ alignment alone:
   (what TMA can take; the output is allocated aligned) — TMA + ``wgmma``,
   warp-specialised (the LM path of jamba, olmo-1b, olmoe, deepseek-moe and
   mistral-large);
-* ``"cuda_core"``: everything else — float32, other head dims, ``Dv !=
-  Dq``, unaligned bf16 — on the CUDA cores.
+* ``"wgmma_dv"``: the same kernel instantiated at ``(Dq, Dv)`` in
+  ``WGMMA_DV_HEAD_DIMS`` — (96, 64), MLA's heads (minicpm3-4b's prefill
+  and scoring) — bf16, 16-byte aligned, with its own entry point;
+* ``"cuda_core"``: everything else — float32, other head dims, unaligned
+  bf16 — on the CUDA cores.
 
-A third kernel, ``"mma_sync"`` (the tensor-core kernel that served the LM
-path before the ``wgmma`` one), is reached only through the private
-``_launch``, as the timed yardstick.  ``LAUNCHES`` counts every launch,
+A fourth kernel, ``"mma_sync"`` (the tensor-core kernel that served the
+LM path before the ``wgmma`` one), is reached only through the private
+``_launch``, as the timed yardstick; so is ``"cuda_core"`` at MLA's heads,
+beside ``wgmma_dv``.  ``LAUNCHES`` counts every launch,
 ``VARIANT_LAUNCHES`` the launches of each kernel, ``PLAIN_CALLS`` the
 plain version's calls.
 """
@@ -56,9 +60,10 @@ __all__ = ["NEG", "LAUNCHES", "PLAIN_CALLS", "VARIANT_LAUNCHES", "VARIANTS",
 NEG = -1e18
 MAX_HEAD_DIM = 128     # the widest head of a ported config
 WGMMA_HEAD_DIM = 128   # the wgmma kernel's Dq == Dv
+WGMMA_DV_HEAD_DIMS = ((96, 64),)   # the wgmma_dv instances' (Dq, Dv)
 DTYPES = (torch.float32, torch.bfloat16)
 
-VARIANTS = ("wgmma", "cuda_core", "mma_sync")
+VARIANTS = ("wgmma", "wgmma_dv", "cuda_core", "mma_sync")
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 VARIANT_LAUNCHES: Dict[str, int] = {v: 0 for v in VARIANTS}
 PLAIN_CALLS: Dict[str, int] = {"flash_attention": 0}
@@ -79,9 +84,11 @@ def plan(dq: int, dv: int, dtype: torch.dtype, aligned: bool) -> str:
     Type, head dims and alignment decide, nothing else."""
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention: no kernel for {dtype}")
-    if (dtype == torch.bfloat16 and dq == dv == WGMMA_HEAD_DIM
-            and aligned):
-        return "wgmma"
+    if dtype == torch.bfloat16 and aligned:
+        if dq == dv == WGMMA_HEAD_DIM:
+            return "wgmma"
+        if (dq, dv) in WGMMA_DV_HEAD_DIMS:
+            return "wgmma_dv"
     return "cuda_core"
 
 
@@ -169,6 +176,7 @@ def build() -> Path:
 
 # the library's entry point of each kernel (cuda_core: by input type)
 ENTRY_POINTS = {"wgmma": "flash_attention_bf16_wgmma",
+                "wgmma_dv": "flash_attention_bf16_wgmma_dv",
                 "mma_sync": "flash_attention_bf16_mma_sync",
                 ("cuda_core", torch.float32): "flash_attention_f32",
                 ("cuda_core", torch.bfloat16): "flash_attention_bf16"}
@@ -180,8 +188,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, p]
         fn.restype = i
-    lib.flash_attention_wgmma_smem_bytes.argtypes = []
-    lib.flash_attention_wgmma_smem_bytes.restype = i
+    for name in ("flash_attention_wgmma_smem_bytes",
+                 "flash_attention_wgmma_dv_smem_bytes",
+                 "flash_attention_wgmma_dv_stages"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -217,7 +228,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             ) -> torch.Tensor:
     """Launch kernel ``variant`` on checked CUDA tensors.  Private:
     ``flash_attention`` passes the kernel ``plan`` picks; timing scripts
-    and the card tests pass ``"mma_sync"`` to run that kernel on the same
+    and the card tests pass ``"mma_sync"``, or ``"cuda_core"`` where the
+    plan picks a ``wgmma`` kernel, to run that kernel on the same
     inputs."""
     group = _check_shapes(q, k, v, causal, window)
     bh, sq, dq = q.shape

@@ -345,13 +345,13 @@ def test_kernel_flash_attention_matches_plain(card, exact_f32, bh, bkv, sq,
     assert_flash_close(out, q, k, v, causal=causal, window=window)
 
 
-def _bf16_qkv(card, bh, bkv, sq, sk, seed, head_offset=0.0):
-    """bf16 q, k, v (D = 128) from a seed; v of head h shifted by
-    ``head_offset`` * h, so rows that land in another head's output stand
-    out."""
+def _bf16_qkv(card, bh, bkv, sq, sk, seed, head_offset=0.0, dq=128, dv=128):
+    """bf16 q, k, v (Dq, Dv = 128 unless given) from a seed; v of head h
+    shifted by ``head_offset`` * h, so rows that land in another head's
+    output stand out."""
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
-               for shape in ((bh, sq, 128), (bkv, sk, 128), (bkv, sk, 128)))
+               for shape in ((bh, sq, dq), (bkv, sk, dq), (bkv, sk, dv)))
     v += head_offset * torch.arange(bkv, dtype=torch.float32)[:, None, None]
     return tuple(t.to(torch.bfloat16).to(card) for t in (q, k, v))
 
@@ -911,21 +911,116 @@ def test_recorded_pass_refuses_the_kernels_on_card(card):
 def test_cuda_core_flash_at_mla_head_dims_matches_plain(card, exact_f32, b,
                                                         s, dtype):
     """MLA's prefill shape: 40 heads a batch row, Dq = dn + dr = 96,
-    Dv = 64, causal, ragged S: the ``cuda_core`` kernel (the ``wgmma`` one
-    needs Dq == Dv == 128)."""
+    Dv = 64, causal, ragged S: float32 on the ``cuda_core`` kernel, bf16 on
+    the ``wgmma_dv`` instance (the test keeps its name from when both took
+    ``cuda_core``)."""
     rng = np.random.default_rng(b * s)
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                .to(dtype).to(card)
                for shape in ((40 * b, s, 96), (40 * b, s, 96),
                              (40 * b, s, 64)))
-    assert FA.plan(96, 64, dtype, True) == "cuda_core"
+    variant = "wgmma_dv" if dtype == torch.bfloat16 else "cuda_core"
+    assert FA.plan(96, 64, dtype, True) == variant
     before = dict(FA.VARIANT_LAUNCHES)
     out = FA.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     ran = {n: FA.VARIANT_LAUNCHES[n] - before[n] for n in FA.VARIANTS}
-    assert ran == {"wgmma": 0, "cuda_core": 1, "mma_sync": 0}
+    assert ran == {n: int(n == variant) for n in FA.VARIANTS}
     assert out.dtype == dtype and out.shape == (40 * b, s, 64)
     assert_flash_close(out, q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("bh,bkv,sq,sk,causal,window", [
+    (40, 40, 2016, 2016, True, 0),     # MLA's prefill of 2016 tokens
+    (40, 40, 2048, 2048, True, 0),     # MLA's scoring shape
+    (3, 3, 77, 77, True, 0),           # one ragged tile, Sk < 128
+    (4, 4, 1000, 1000, True, 0),       # ragged
+    (4, 4, 640, 640, False, 0),        # non-causal
+    (3, 1, 100, 300, False, 0),        # Sq != Sk, GQA 3
+    (4, 4, 1024, 1024, True, 256),     # window
+    (4, 2, 512, 512, True, 100),       # window edge inside a tile, GQA 2
+    (80, 40, 1000, 1000, True, 0),     # GQA: 80 query heads over 40
+])
+def test_wgmma_dv_flash_matches_plain(card, bh, bkv, sq, sk, causal,
+                                      window):
+    """The ``wgmma_dv`` instance (Dq 96, Dv 64) against the plain version,
+    element by element within ``FA.bf16_error_bound``; exactly one launch,
+    on that kernel."""
+    q, k, v = _bf16_qkv(card, bh, bkv, sq, sk, seed=bh + sq + window,
+                        dq=96, dv=64)
+    assert FA.plan(96, 64, torch.bfloat16, FA._aligned16(q, k, v)) == (
+        "wgmma_dv")
+    before = dict(FA.VARIANT_LAUNCHES)
+    out = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    ran = {n: FA.VARIANT_LAUNCHES[n] - before[n] for n in FA.VARIANTS}
+    assert ran == {n: int(n == "wgmma_dv") for n in FA.VARIANTS}
+    assert out.dtype == torch.bfloat16 and out.shape == (bh, sq, 64)
+    assert_flash_close(out, q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("bh,bkv,s,causal", [(3, 3, 200, True),
+                                             (3, 3, 1000, False),
+                                             (6, 3, 333, True),
+                                             (40, 40, 2016, True)])
+def test_wgmma_dv_flash_keeps_each_head_to_itself(card, bh, bkv, s, causal):
+    """As ``test_wgmma_flash_keeps_each_head_to_itself``, at Dq 96, Dv 64:
+    the 192-byte q/k rows and 128-byte v/o rows of a ragged S stay in
+    their own head (loads past Sk read zeros, the o store is clipped at
+    Sq); every head is held separately."""
+    q, k, v = _bf16_qkv(card, bh, bkv, s, s, seed=bh + s, head_offset=8.0,
+                        dq=96, dv=64)
+    before = FA.VARIANT_LAUNCHES["wgmma_dv"]
+    out = FA.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.VARIANT_LAUNCHES["wgmma_dv"] == before + 1
+    want = FA.flash_attention_torch(q, k, v, causal=causal).float()
+    bound = FA.bf16_error_bound(q, k, v, causal=causal)
+    for h in range(bh):
+        err = (out[h].float() - want[h]).abs()
+        assert bool((err <= bound[h]).all()), (
+            f"head {h}: {int((err > bound[h]).sum())} elements beyond the "
+            f"bf16 bound, max |err| {float(err.max()):.3e}")
+
+
+@pytest.mark.parametrize("bh,bkv,s,causal,window", [
+    (40, 40, 2016, True, 0), (4, 2, 512, True, 100), (3, 1, 77, False, 0)])
+def test_wgmma_dv_flash_is_deterministic(card, bh, bkv, s, causal, window):
+    """Two calls on the same inputs give bit-equal outputs."""
+    q, k, v = _bf16_qkv(card, bh, bkv, s, s, seed=13, dq=96, dv=64)
+    before = FA.VARIANT_LAUNCHES["wgmma_dv"]
+    x = FA.flash_attention(q, k, v, causal=causal, window=window)
+    y = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.VARIANT_LAUNCHES["wgmma_dv"] == before + 2
+    assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("bh,bkv,s,causal", [(40, 40, 2016, True),
+                                             (3, 1, 333, False)])
+def test_cuda_core_flash_still_matches_plain_at_mla_head_dims(card, bh, bkv,
+                                                              s, causal):
+    """The ``cuda_core`` kernel at 96 / 64 in bf16, through its own entry
+    point (the private launcher: the yardstick ``chip_smoke.py`` times
+    beside ``wgmma_dv``)."""
+    q, k, v = _bf16_qkv(card, bh, bkv, s, s, seed=bh * s, dq=96, dv=64)
+    before = dict(FA.VARIANT_LAUNCHES)
+    out = FA._launch(q, k, v, causal, 0, None, "cuda_core")
+    torch.cuda.synchronize()
+    ran = {n: FA.VARIANT_LAUNCHES[n] - before[n] for n in FA.VARIANTS}
+    assert ran == {n: int(n == "cuda_core") for n in FA.VARIANTS}
+    assert_flash_close(out, q, k, v, causal=causal)
+
+
+def test_wgmma_dv_entry_refuses_other_head_dims(card):
+    """The ``wgmma_dv`` entry point takes (96, 64) only, and its ring is
+    3 stages deep in the shared memory the library reports."""
+    lib = FA._build.load(FA.SOURCE, FA._bind)
+    assert lib.flash_attention_wgmma_dv_stages() == 3
+    assert lib.flash_attention_wgmma_dv_smem_bytes() <= 232448
+    q, k, v = _bf16_qkv(card, 2, 2, 128, 128, seed=3, dq=96, dv=96)
+    with pytest.raises(RuntimeError, match="wgmma_dv"):
+        FA._launch(q, k, v, True, 0, None, "wgmma_dv")
 
 
 def test_mla_block_on_card_kernel_matches_chunked(card, exact_f32):
@@ -977,6 +1072,34 @@ def test_minicpm3_forward_on_card_goes_through_the_kernel(card, exact_f32):
         out, cache = model.decode_step(params, toks[:, i:i + 1], cache)
         torch.testing.assert_close(out[:, 0], plain[:, i], atol=3e-4,
                                    rtol=1e-3)
+
+
+def test_minicpm3_bf16_forward_on_card_goes_through_wgmma_dv(card):
+    """minicpm3-4b's smoke config with MLA's full head dims (dn 64, dr 32,
+    dv 64: Dq 96, Dv 64), bf16: scoring with the kernel impl launches
+    ``wgmma_dv`` once per layer and ``cuda_core`` never (no plain
+    version), and its logits lie as near the float32 chunked logits as
+    the bf16 chunked impl's do."""
+    base = get_smoke_config("minicpm3_4b")
+    att = replace(base.attention, qk_nope_head_dim=64, qk_rope_head_dim=32,
+                  v_head_dim=64)
+    cfg = replace(base, attention=att, compute_dtype="bfloat16")
+    params = get_model(cfg).init_params(0, device=card)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 200))).to(card)
+    FA.reset_counts()
+    with torch.no_grad():
+        kern = port_lm.forward(params, cfg, toks, impl="flash_pallas")
+    assert FA.VARIANT_LAUNCHES == {n: cfg.n_layers * (n == "wgmma_dv")
+                                   for n in FA.VARIANTS}
+    assert FA.PLAIN_CALLS["flash_attention"] == 0
+    with torch.no_grad():
+        plain = port_lm.forward(params, cfg, toks)
+        f32 = port_lm.forward(params, replace(cfg, compute_dtype="float32"),
+                              toks)
+    rms = lambda t: float(t.float().square().mean().sqrt())  # noqa: E731
+    assert torch.isfinite(kern).all()
+    assert rms(kern.float() - f32) <= 1.5 * rms(plain.float() - f32)
 
 
 def test_whisper_encode_on_card_matches_cpu(card, exact_f32):

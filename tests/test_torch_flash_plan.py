@@ -2,10 +2,11 @@
 ``flash_attention.plan`` picks the kernel of each call from the input type,
 the head dims and the alignment of the pointers alone -- checked here at
 the attention shape of every ported config (as ``models/layers.py``
-hands it to the kernel: (B * H, S, head_dim)), at the head dims that take
-the CUDA-core kernel and at unaligned views; and the shared build sees the
-shared header.  The kernels themselves run only on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phases 6 and 8).
+hands it to the kernel: (B * H, S, head_dim)), at MLA's head dims (the
+``wgmma_dv`` instance), at the head dims that take the CUDA-core kernel
+and at unaligned views; and the shared build sees the shared header.  The
+kernels themselves run only on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py`` phases 6, 8 and 14).
 """
 
 import shutil
@@ -50,6 +51,44 @@ def test_dv_unlike_dq_picks_cuda_core(dq, dv):
     assert FA.plan(dq, dv, BF16, True) == "cuda_core"
 
 
+def _mla_head_dims():
+    """minicpm3-4b's (Dq, Dv) as ``mla_block`` hands them to the kernel:
+    Dq = dn + dr, Dv = dv."""
+    a = get_config("minicpm3_4b").attention
+    return a.qk_nope_head_dim + a.qk_rope_head_dim, a.v_head_dim
+
+
+def test_mla_head_dims_pick_wgmma_dv_in_bf16():
+    dq, dv = _mla_head_dims()
+    assert (dq, dv) == (96, 64)
+    assert (dq, dv) in FA.WGMMA_DV_HEAD_DIMS
+    assert FA.plan(dq, dv, BF16, True) == "wgmma_dv"
+
+
+@pytest.mark.parametrize("dtype,aligned", [(torch.float32, True),
+                                           (torch.float32, False),
+                                           (BF16, False)])
+def test_mla_head_dims_in_float32_or_unaligned_pick_cuda_core(dtype,
+                                                              aligned):
+    assert FA.plan(*_mla_head_dims(), dtype, aligned) == "cuda_core"
+
+
+@pytest.mark.parametrize("dq,dv", [(64, 96), (96, 96), (96, 32), (80, 64)])
+def test_near_mla_head_dims_pick_cuda_core(dq, dv):
+    """Only the instantiated (Dq, Dv) go to ``wgmma_dv``: Dq and Dv
+    swapped, phi-3-vision's 96 / 96 and others stay on ``cuda_core``."""
+    assert FA.plan(dq, dv, BF16, True) == "cuda_core"
+
+
+def test_unaligned_mla_view_picks_cuda_core():
+    q = torch.zeros((40, 64, 96), dtype=BF16)
+    flat = torch.zeros(40 * 64 * 64 + 1, dtype=BF16)
+    v1 = flat[1:].view(40, 64, 64)
+    assert FA.plan(96, 64, BF16, FA._aligned16(q, q, flat[:-1].view(
+        40, 64, 64))) == "wgmma_dv"
+    assert FA.plan(96, 64, BF16, FA._aligned16(q, q, v1)) == "cuda_core"
+
+
 def test_unaligned_bf16_picks_cuda_core():
     assert FA.plan(128, 128, BF16, False) == "cuda_core"
 
@@ -85,12 +124,27 @@ def test_cpu_tensors_count_a_plain_call_and_no_variant_launch():
 
 
 def test_every_variant_has_an_entry_point():
-    """The two planned kernels, and the private mma.sync yardstick."""
+    """The three planned kernels, and the private mma.sync yardstick."""
     names = set(FA.ENTRY_POINTS.values())
     for name in names:
         assert f"int {name}(" in FA.SOURCE.read_text()
-    assert {"wgmma", "mma_sync"} <= set(FA.ENTRY_POINTS)
+    assert {"wgmma", "wgmma_dv", "mma_sync"} <= set(FA.ENTRY_POINTS)
     assert {("cuda_core", t) for t in FA.DTYPES} <= set(FA.ENTRY_POINTS)
+
+
+@pytest.mark.parametrize("variant", ["wgmma", "wgmma_dv", "mma_sync"])
+def test_bf16_kernels_have_their_own_entry_point(variant):
+    """Each bf16 tensor-core kernel is reached through an entry point of
+    its own (the counters tell which one a path ran), which refuses other
+    head dims; the wgmma_dv instance's entry checks (96, 64)."""
+    name = FA.ENTRY_POINTS[variant]
+    assert list(FA.ENTRY_POINTS.values()).count(name) == 1
+    src = FA.SOURCE.read_text()
+    body = src[src.index(f"int {name}("):]
+    body = body[:body.index("\n}\n")]
+    want = "Dq != 96 || Dv != 64" if variant == "wgmma_dv" else (
+        "Dq != 128 || Dv != 128")
+    assert want in body
 
 
 def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):

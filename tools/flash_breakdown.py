@@ -4,7 +4,7 @@ NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python3 tools/flash_breakdown.py
+    python3 tools/flash_breakdown.py [--against OTHER/flash_attention.cu]
 
 It builds cuts of ``csrc/flash_attention.cu`` -- copies of the source with
 one part of the wgmma kernel's work taken out, built beside the real
@@ -12,7 +12,10 @@ library under ``build/flash_breakdown/`` -- and times each against the
 real kernel, the PR 12 ``mma.sync`` kernel and
 ``scaled_dot_product_attention`` at the LM path's two shapes (bf16,
 causal, BH 128 over 32 KV heads, D 128: S 2048 as ``chip_smoke.py`` phase
-6 scores, S 512 as its prefill):
+6 scores, S 512 as its prefill), and the ``wgmma_dv`` instance (Dq 96, Dv
+64) the same way at MLA's shape (40 heads, S 2048, as phase 14 times it),
+there beside the ``cuda_core`` kernel, SDPA, the FLOP bound and the
+exponentials' floor.  A cut applies to both instances:
 
 * ``overlap``: not a cut but the schedule the kernel does not use -- each
   tile's q k^T issued together with the last tile's P v, and the softmax
@@ -24,7 +27,15 @@ causal, BH 128 over 32 KV heads, D 128: S 2048 as ``chip_smoke.py`` phase
 * ``no_pv``: no P v products;
 * ``no_products``: neither product (loads, softmax on whatever the score
   registers hold, epilogue);
-* ``loads_only``: neither product nor the softmax.
+* ``loads_only``: neither product nor the softmax;
+* ``forward_rounds``: not a cut but the item order the kernel does not
+  use -- every round of items dealt to the blocks forwards;
+* ``stages_2``: a k/v ring of 2 stages (the D 128 instance's depth; the
+  ``wgmma_dv`` instance's is 3).
+
+``--against`` builds another version of the source (an unpacked older
+commit's, say) beside the real one, checks that the D 128 instance gives
+the same bits at the two shapes and times the two in turns.
 
 A cut kernel's output is wrong on purpose: only its time is read (the
 ``overlap`` kernel's output is right).  Times
@@ -55,7 +66,9 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 
 OUT = ROOT / "build" / "flash_breakdown"
-KERNEL = "flash_attention_wgmma_kernel"
+# the kernel at D 128 (its mangled name; the source instantiates it at
+# (96, 64) too)
+KERNEL = "flash_attention_wgmma_kernelILi128ELi128E"
 
 NO_PINGPONG = ("  auto my_turn = [&]() { named_bar_sync(PING + c, 256); };\n"
                "  auto your_turn = [&]() { named_bar_arrive(PING + 1 - c, "
@@ -64,8 +77,8 @@ NO_PINGPONG = ("  auto my_turn = [&]() { named_bar_sync(PING + c, 256); };\n"
 NO_SOFTMAX = ("      tile_softmax(s_acc, m, l, alpha, row, col, it.first + i * "
               "wgf::BK, lo,\n                   Sk, causal, window, scale2);\n",
               "      alpha[0] = alpha[1] = 1.f;\n")
-NO_QK = ("  for (int kk = 0; kk < wgf::HD / 16; ++kk) {\n",
-         "  for (int kk = 0; kk < wgf::HD / 16 && q != 1; ++kk) {\n")
+NO_QK = ("  for (int kk = 0; kk < STEPS; ++kk) {\n",
+         "  for (int kk = 0; kk < STEPS && q != 1; ++kk) {\n")
 NO_PV = ("  for (int kk = 0; kk < wgf::BK / 16; ++kk)\n    wgmma_rs<1>(",
          "  for (int kk = 0; kk < wgf::BK / 16 && v != 1; ++kk)\n"
          "    wgmma_rs<1>(")
@@ -76,7 +89,7 @@ OVERLAP = ("""      issue_pv(o, p, vs(sp));
       wgmma_wait<0>();
       fence_regs(o);
       if (lane == 0) mbar_arrive(v_empty(sp));
-      issue_qk(s_acc, qa, ks(s));
+      issue_qk<DQ / 16>(s_acc, qa, ks(s));
       your_turn();
       wgmma_wait<0>();
       fence_regs(s_acc);
@@ -84,7 +97,7 @@ OVERLAP = ("""      issue_pv(o, p, vs(sp));
       tile_softmax(s_acc, m, l, alpha, row, col, it.first + i * wgf::BK, lo,
                    Sk, causal, window, scale2);
 """,
-           """      issue_qk(s_acc, qa, ks(s));
+           """      issue_qk<DQ / 16>(s_acc, qa, ks(s));
       issue_pv(o, p, vs(sp));
       your_turn();
       wgmma_wait<1>();
@@ -96,6 +109,12 @@ OVERLAP = ("""      issue_pv(o, p, vs(sp));
       fence_regs(o);
       if (lane == 0) mbar_arrive(v_empty(sp));
 """)
+FORWARD_ROUNDS = ("  return n * gridDim.x + ((n & 1) ? gridDim.x - 1 - "
+                  "blockIdx.x : blockIdx.x);\n",
+                  "  return n * gridDim.x + blockIdx.x;\n")
+STAGES_2 = ("  static constexpr int STAGES =\n      (SMEM_MAX - 1024 - 2 * "
+            "QK_TILE - 8 * 4) / (QK_TILE + V_TILE + 8 * 4);\n",
+            "  static constexpr int STAGES = 2;\n")
 CUTS = {
     "overlap": [OVERLAP],
     "no_pingpong": [NO_PINGPONG],
@@ -103,15 +122,22 @@ CUTS = {
     "no_pv": [NO_PV],
     "no_products": [NO_QK, NO_PV],
     "loads_only": [NO_QK, NO_PV, NO_SOFTMAX],
+    "forward_rounds": [FORWARD_ROUNDS],
+    "stages_2": [STAGES_2],
 }
+# the instances' mangled names (the source instantiates D 128 and 96 / 64)
+DV_KERNEL = "flash_attention_wgmma_kernelILi96ELi64E"
 
 
-def build_cuts() -> dict:
-    """{name: library} for the real source and each cut copy, built in
+def build_cuts(against=None) -> dict:
+    """{name: (library, path)} for the real source, each cut copy and, if
+    given, the ``against`` source (as ``"against"``), built in
     parallel."""
     src = FA.SOURCE.read_text()
     OUT.mkdir(parents=True, exist_ok=True)
     paths = {"full": FA.SOURCE}
+    if against is not None:
+        paths["against"] = Path(against).resolve()
     for name, subs in CUTS.items():
         text = src
         for old, new in subs:
@@ -127,15 +153,21 @@ def build_cuts() -> dict:
     libs = {}
     for name, so in built.items():
         lib = ctypes.CDLL(str(so))
-        FA._bind(lib)
+        if name == "against":     # an older source may lack entry points
+            fn = lib.flash_attention_bf16_wgmma
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+                ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        else:
+            FA._bind(lib)
         libs[name] = (lib, so)
     return libs
 
 
-def sass_report(so: Path) -> str:
+def sass_report(so: Path, kernel: str = KERNEL) -> str:
     """Local-memory instructions, the highest register, and the wgmma
-    instructions and the waits on them, of the wgmma kernel in the
-    library's SASS."""
+    instructions and the waits on them, of the wgmma kernel instance
+    ``kernel`` in the library's SASS."""
     tool = shutil.which("cuobjdump") or str(
         Path(_build._nvcc()).parent / "cuobjdump")
     proc = subprocess.run([tool, "-sass", str(so)], capture_output=True,
@@ -145,7 +177,7 @@ def sass_report(so: Path) -> str:
     text, keep = [], False
     for line in proc.stdout.splitlines():
         if "Function :" in line:
-            keep = KERNEL in line
+            keep = kernel in line
         elif keep:
             text.append(line)
     body = "\n".join(text)
@@ -159,31 +191,136 @@ def sass_report(so: Path) -> str:
 
 
 def launch(lib, q, k, v) -> torch.Tensor:
-    bh, sq, d = q.shape
-    out = torch.empty_like(q)
-    err = lib.flash_attention_bf16_wgmma(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
-        bh // k.shape[0], sq, k.shape[1], d, d, 1, 0, d ** -0.5,
-        torch.cuda.current_stream().cuda_stream)
+    """One causal call of the library's wgmma kernel (D 128) or its
+    wgmma_dv instance (Dq != Dv)."""
+    bh, sq, dq = q.shape
+    dv = v.shape[2]
+    out = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
+    fn = (lib.flash_attention_bf16_wgmma if dq == dv
+          else lib.flash_attention_bf16_wgmma_dv)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+             bh // k.shape[0], sq, k.shape[1], dq, dv, 1, 0, dq ** -0.5,
+             torch.cuda.current_stream().cuda_stream)
     _build.launch_check("flash_breakdown", err)
     return out
+
+
+def cut_times(libs, q, k, v, reps: int) -> tuple:
+    """({cut: device ms}, the real kernel's device ms: a median of its
+    turns between the cuts, and their range)."""
+    full = lambda: launch(libs["full"][0], q, k, v)  # noqa: E731
+    fulls, row = [cs.graph_ms([full], reps)], {}
+    for name in CUTS:
+        cut = lambda lib=libs[name][0]: launch(lib, q, k, v)  # noqa: E731
+        row[name] = cs.graph_ms([cut], reps)
+        fulls.append(cs.graph_ms([full], reps))
+    return row, sorted(fulls)[len(fulls) // 2], (min(fulls), max(fulls))
+
+
+def key_tiles(bh: int, s: int, blocks: int, backwards: bool) -> tuple:
+    """(the busiest block's key tiles, all blocks' key tiles) of a causal
+    call of the wgmma kernel: 128-row items, heaviest first, heads
+    fastest, dealt to ``blocks`` blocks in rounds, every other round
+    backwards if ``backwards`` (the kernel's ``item_of``)."""
+    qtiles = -(-s // 128)
+    items = bh * qtiles
+    blocks = min(blocks, items)
+    load = [0] * blocks
+    for n in range(-(-items // blocks)):
+        for b in range(blocks):
+            w = n * blocks + (blocks - 1 - b if backwards and n % 2 else b)
+            if w < items:
+                r0 = (qtiles - 1 - w // bh) * 128
+                load[b] += -(-min(s, r0 + 128) // 128)
+    return max(load), sum(load)
+
+
+def mla_shape(libs, gen, dev) -> None:
+    """The wgmma_dv instance at MLA's shape: the cuts, the cuda_core
+    kernel (private launcher), SDPA, the bound and the exponentials'
+    floor."""
+    import torch.nn.functional as F
+    h, s, dq, dv = 40, cs.MLA_S, 96, 64
+    q = torch.randn((h, s, dq), generator=gen, device=dev).bfloat16()
+    k = torch.randn((h, s, dq), generator=gen, device=dev).bfloat16()
+    v = torch.randn((h, s, dv), generator=gen, device=dev).bfloat16()
+    bms, by = cs.flash_bound(q, k, v, causal=True)
+    floor = cs.exp_floor(q, k, causal=True)
+    err = (launch(libs["full"][0], q, k, v).float()
+           - FA.flash_attention_torch(q, k, v).float()).abs()
+    ok = bool((err <= FA.bf16_error_bound(q, k, v)).all())
+    del err
+    row, full_ms, (lo, hi) = cut_times(libs, q, k, v, 20)
+    old = cs.graph_ms([lambda: FA._launch(q, k, v, True, 0, None,
+                                          "cuda_core")], 5)
+    q4, k4, v4 = (t[None] for t in (q, k, v))
+    lib_ms = cs.graph_ms([lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True)], 20)
+    print(f"MLA's shape (BH {h}, S {s}, Dq {dq}, Dv {dv}, bf16, causal; "
+          f"bound {bms:.4f} ms, {by}; exponentials' floor {floor:.4f} ms): "
+          f"wgmma_dv {full_ms:.4f} ms (median of {len(CUTS) + 1}, range "
+          f"{lo:.4f}-{hi:.4f}; {100 * bms / full_ms:.1f}% of bound; within "
+          f"the bf16 bound: {ok}); cuda_core {old:.4f}; "
+          f"scaled_dot_product_attention {lib_ms:.4f} (wgmma_dv / SDPA "
+          f"{full_ms / lib_ms:.3f})", flush=True)
+    print("  cuts (device ms): " + ", ".join(
+        f"{name} {row[name]:.4f}" for name in CUTS), flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    busiest, total = key_tiles(h, s, sms, backwards=True)
+    forward = key_tiles(h, s, sms, backwards=False)[0]
+    mb = total * 128 * (dq + dv) * 2 / 1e6
+    print(f"  key tiles on {sms} SMs: {total} in all ({mb:.1f} MB of k and "
+          f"v read), the busiest block {busiest} ({forward} with every "
+          f"round forwards)", flush=True)
+
+
+def against_parent(libs, gen, dev) -> None:
+    """The D 128 instance of the real source against the ``against``
+    source's: bit for bit, and device time in turns (against, real, real,
+    against)."""
+    b, h, kv, d = cs.SCORE_B, 32, 8, 128
+    for s in (cs.SCORE_S, cs.PROMPT):
+        q = torch.randn((b * h, s, d), generator=gen, device=dev).bfloat16()
+        k = torch.randn((b * kv, s, d), generator=gen, device=dev).bfloat16()
+        v = torch.randn((b * kv, s, d), generator=gen, device=dev).bfloat16()
+        same = torch.equal(launch(libs["against"][0], q, k, v),
+                           launch(libs["full"][0], q, k, v))
+        reps = 20 if s == cs.SCORE_S else 100
+        times = [cs.graph_ms([lambda lib=libs[n][0]: launch(lib, q, k, v)],
+                             reps)
+                 for n in ("against", "full", "full", "against")]
+        print(f"D 128, S {s}: this source's kernel bit for bit the "
+              f"--against source's: {same}; device ms against "
+              f"{times[0]:.4f} {times[3]:.4f}, this source {times[1]:.4f} "
+              f"{times[2]:.4f}", flush=True)
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("flash_breakdown: no CUDA device", file=sys.stderr)
         return 1
+    import argparse
     import torch.nn.functional as F
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--against", help="another flash_attention.cu")
+    args = ap.parse_args()
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
-    libs = build_cuts()
+    libs = build_cuts(args.against)
     for name, (_, so) in libs.items():
         log = so.with_suffix(".log").read_text()
-        print(f"{name}: {cs.ptxas_summary(log, KERNEL)}", flush=True)
+        # an older source's kernel may not be a template
+        kerns = ((KERNEL, DV_KERNEL) if name != "against"
+                 else ("flash_attention_wgmma_kernel",))
+        for kern in kerns:
+            print(f"{name} {kern}: {cs.ptxas_summary(log, kern)}",
+                  flush=True)
         for line in log.splitlines():
             if "Performance" in line:    # ptxas' wgmma serialisation notes
                 print(f"  {line.strip()}", flush=True)
-    print(f"full, SASS: {sass_report(libs['full'][1])}", flush=True)
+    for kern in (KERNEL, DV_KERNEL):
+        print(f"full {kern}, SASS: {sass_report(libs['full'][1], kern)}",
+              flush=True)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -198,29 +335,26 @@ def main() -> int:
         ok = bool((err <= FA.bf16_error_bound(q, k, v)).all())
         del err
         reps = 20 if s == cs.SCORE_S else 100
-        full = lambda: launch(libs["full"][0], q, k, v)  # noqa: E731
-        row = {"full": [cs.graph_ms([full], reps)]}
-        for name in CUTS:
-            cut = lambda lib=libs[name][0]: launch(lib, q, k, v)  # noqa: E731
-            row[name] = [cs.graph_ms([cut], reps)]
-            row["full"].append(cs.graph_ms([full], reps))
+        row, full_ms, (lo, hi) = cut_times(libs, q, k, v, reps)
         old = cs.graph_ms([lambda: FA._launch(q, k, v, True, 0, None,
                                               "mma_sync")], reps)
         q4, k4, v4 = (t.view(b, t.shape[0] // b, s, d) for t in (q, k, v))
         lib_ms = cs.graph_ms([lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True, enable_gqa=True)], reps)
-        full_ms = sorted(row["full"])[len(row["full"]) // 2]
         print(f"S {s} (BH {b * h}/{b * kv}, D {d}, bf16, causal; bound "
               f"{bms:.4f} ms, {by}): full {full_ms:.4f} ms (median of "
-              f"{len(row['full'])}, range {min(row['full']):.4f}-"
-              f"{max(row['full']):.4f}; {100 * bms / full_ms:.1f}% of bound)"
+              f"{len(CUTS) + 1}, range {lo:.4f}-{hi:.4f}; "
+              f"{100 * bms / full_ms:.1f}% of bound)"
               f"; mma.sync {old:.4f}; scaled_dot_product_attention "
               f"{lib_ms:.4f} (full / SDPA {full_ms / lib_ms:.3f})",
               flush=True)
         print("  cuts (device ms): " + ", ".join(
-            f"{name} {row[name][0]:.4f}" for name in CUTS)
+            f"{name} {row[name]:.4f}" for name in CUTS)
             + f"; the overlap kernel within the bf16 bound: {ok}", flush=True)
         del q, k, v, q4, k4, v4
+    mla_shape(libs, gen, dev)
+    if args.against:
+        against_parent(libs, gen, dev)
     print(cs.card_line(), flush=True)
     return 0
 
