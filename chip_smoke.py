@@ -219,6 +219,32 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    device: parameter counts (less the leaves ``UNCOUNTED_LEAVES``, equal
    to ``cfg.n_params()``), training-state bytes, no CUDA byte allocated
    and host memory grown by < 256 MiB;
+15. distributed launch (``repro_torch.launch.{mesh,sharding,dryrun,
+   roofline,roofline_report}``, ``pspec``), the four kernels' counters
+   zeroed before and read after (no launch, no plain call: the step
+   builders take the chunked impls): (a) an NCCL process group of world
+   size 1 on a free local port and ``make_local_mesh(1, 1)`` on the card;
+   olmo-1b at full width and depth as in phase 13 (B 4 x S 4096, bf16,
+   remat), ``SHARD_STEPS`` steps of ``make_train_step`` with parameters,
+   AdamW state and batches as DTensors placed by ``param_specs`` and
+   ``input_specs_sharding`` under ``pspec.activation_mesh``, then the same
+   steps on plain tensors from the same weights and batches: losses and
+   grad norms within ``SHARD_RTOL`` (and whether bit-equal), s per step on
+   both paths (the difference is DTensor's host cost on one card), peak
+   memory; one more sharded step under ``StepCounter``: its FLOPs within
+   ``FLOP_TOL`` of ``analytic_train_flops`` (6·N·T + the remat forward +
+   the chunked attention over all chunk pairs), its roofline terms on
+   ``HW_H100`` and the measured step over the largest; (b) minicpm3-4b at
+   full width and depth in bf16, B 1: a prefill of ``CACHE_PROMPT``
+   tokens and ``CACHE_GEN`` absorbed decode steps through
+   ``make_prefill_step``/``make_decode_step`` on plain tensors and on the
+   mesh with the cache placed by ``cache_specs``: greedy tokens equal,
+   logits within ``CACHE_RTOL``, ms/token on both; (c) the dry run of the
+   production meshes, one ``python -m repro_torch.launch.dryrun`` process
+   per cell of ``DRY_CELLS`` (with no card visible), all started together:
+   every cell succeeds; per cell its seconds, per-device FLOPs, bytes,
+   argument bytes, peak, collectives by kind and its ``roofline_report``
+   row; the card's memory does not grow;
 
 each phase's time and the whole script's, then one ``{"kernels": [...]}``
 line (B2's ``wgmma_dv`` instance a row of its own, with the minicpm3-4b
@@ -229,10 +255,13 @@ non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -246,15 +275,18 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.launch.roofline import HW_H100  # noqa: E402
+
 N_CAND = 4096          # candidates per explore call
 N_CROSS = 256          # candidates held against the wavefront engine
 CROSS_RTOL = 1e-5      # blocked vs wavefront (closure squaring reassociates)
 # H100 SXM, published: 132 SMs x 128 FP32 lanes x 1.98 GHz = 33.5 T
 # lane-instructions/s (the 67 TFLOP/s of the data sheet counts an FMA as
-# two); device memory 3.35 TB/s.  Both assume the full 700 W power limit.
+# two); device memory and the dense bf16 tensor-core peak from the card's
+# constants in launch.roofline.  All assume the full 700 W power limit.
 FP32_INSTR_PER_S = 33.5e12
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12   # tensor cores, dense (H100 SXM data sheet)
+HBM_BYTES_PER_S = HW_H100["hbm_bytes_per_s"]
+BF16_FLOP_PER_S = HW_H100["peak_bf16_flops"]
 FP32_FLOP_PER_S = 67e12    # CUDA cores (same data sheet; an FMA counts as two)
 # special-function unit: 16 exponentials per clock per SM (H100 SXM: 132
 # SMs at 1.98 GHz)
@@ -371,6 +403,26 @@ TRAIN_CHECK_STEPS = 3
 # biases, the mamba conv bias, position tables, the VLM patch projection
 UNCOUNTED_LEAVES = ("scale", "bias", "conv_b", "enc_pos", "dec_pos",
                     "patch_proj")
+
+# -- distributed launch (phase 15) --------------------------------------------
+SHARD_STEPS = 3        # (a): phase 13's olmo-1b step on the (1, 1) mesh
+SHARD_RTOL = 1e-5      # sharded vs plain losses and grad norms (crash-resume)
+FLOP_TOL = 0.02        # the counted step against the analytic count
+CACHE_ARCH = "minicpm3_4b"
+CACHE_PROMPT = 2048    # Model.prefill's chunked attention: T % 1024 == 0
+CACHE_GEN = 8          # absorbed decode steps
+CACHE_RTOL = 1e-5      # sharded vs plain logits
+# (c): the dry run's cells (arch, shape, mesh, depth: None = published),
+# one process each, cut to keep the phase near 120 s: jamba's prefill to one pattern period,
+# 8 of its 32 layers, mistral-large's training to 8 of its 88 layers (8
+# microbatches of 88 layers, each op dispatched through DTensor on the
+# host, take ~13 minutes)
+DRY_CELLS = (("olmo-1b", "train_4k", "single", None),
+             ("olmo-1b", "train_4k", "multi", None),
+             ("minicpm3-4b", "decode_32k", "single", None),
+             ("jamba-v0.1-52b", "prefill_32k", "single", 8),
+             ("mistral-large-123b", "train_4k", "single", 8))
+DRY_TIMEOUT = 900
 
 # θ = 1 cycles of the 10 default cells, pinned in the reference's tests
 GOLDEN_THETA1_CYCLES = {
@@ -3018,6 +3070,322 @@ def mla_phase(modules, dev) -> tuple:
     return case, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: distributed launch -- the sharded step on a (1, 1) mesh, caches
+# on the mesh, the dry run of the production meshes
+# ---------------------------------------------------------------------------
+
+
+def open_nccl_group(dev) -> None:
+    """The process's default group: NCCL, world size 1, on a free local
+    port."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(torch.cuda.current_device() if dev.index is None
+                          else dev.index)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+
+
+def value(t) -> float:
+    """A 0-d tensor (a DTensor's whole value) as a float."""
+    from repro_torch import pspec
+    return float(t.full_tensor() if pspec.is_dtensor(t) else t)
+
+
+def analytic_train_flops(cfg, b: int, s: int) -> dict:
+    """The matmul FLOPs of one training step of a dense GQA LM with tied
+    embeddings (olmo-1b), term by term: 6·N·T over every weight product
+    (the tied unembedding included); the remat forward of every layer
+    product but each checkpointed group's last (``w_down`` of its last
+    layer: torch's non-reentrant checkpoint stops recomputing once the
+    saved tensors it needs are back); the chunked attention over all of
+    its chunk pairs (A13's skip of masked chunks is not done), q kᵀ and p
+    v, forward twice (remat) and backward (twice a forward)."""
+    from repro_torch.models import lm
+    a, t = cfg.attention, b * s
+    d, f = cfg.d_model, cfg.d_ff
+    layer = d * a.n_heads * a.head_dim * 2 + d * a.n_kv_heads * \
+        a.head_dim * 2 + 3 * d * f
+    groups = cfg.n_layers // (max(1, cfg.remat_group)
+                              * lm.pattern_period(cfg))
+    terms = {
+        "6NT": 6.0 * t * (cfg.n_layers * layer + cfg.vocab_size * d),
+        "remat": 2.0 * t * (cfg.n_layers * layer - groups * f * d),
+        "attention": 16.0 * cfg.n_layers * b * a.n_heads * a.head_dim
+        * s * s,
+    }
+    terms["total"] = sum(terms.values())
+    return terms
+
+
+def sharded_train(dev, mesh) -> None:
+    """15 (a): olmo-1b at full width and depth (phase 13's model, bf16
+    compute, remat, B 4 x S 4096): ``SHARD_STEPS`` steps of
+    ``make_train_step`` with parameters, AdamW state and batches as
+    DTensors on the (1, 1) mesh, placed by ``param_specs`` and
+    ``input_specs_sharding``, under ``pspec.activation_mesh``; the same
+    steps on plain tensors from the same parameters and batches; one more
+    sharded step counted by ``StepCounter``."""
+    import copy
+    from repro_torch import pspec
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import StepCounter, roofline_terms
+    from repro_torch.launch.sharding import (distribute, distribute_params,
+                                             input_specs_sharding)
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = get_config(TRAIN_ARCH)
+    t = time.perf_counter()
+    params, _ = init_train_state(cfg, torch.Generator().manual_seed(0), dev)
+    sharded = distribute_params(copy.deepcopy(params), mesh)
+    setup_s = time.perf_counter() - t
+    batches = [fixed_batch(cfg, TRAIN_B, TRAIN_S, dev, seed=i)
+               for i in range(SHARD_STEPS + 1)]
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR))
+    runs = {}
+    for path, model in (("plain", params), ("sharded", sharded)):
+        state = adamw_init({n: p for n, p in model.named_parameters()
+                            if p.requires_grad})
+        feeds = batches
+        if path == "sharded":
+            placed = input_specs_sharding(mesh, batches[0])
+            feeds = [{k: distribute(v, mesh, placed[k])
+                      for k, v in bt.items()} for bt in batches]
+        ctx = pspec.activation_mesh(mesh) if path == "sharded" else \
+            contextlib.nullcontext()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, secs = [], [], []
+        with ctx:
+            for bt in feeds[:SHARD_STEPS]:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _, state, m = step(model, state, bt)
+                losses.append(value(m["loss"]))
+                norms.append(value(m["grad_norm"]))
+                secs.append(time.perf_counter() - t)
+            peak = torch.cuda.max_memory_allocated()
+            if path == "sharded":
+                counter = StepCounter(device=dev.type)
+                with counter:
+                    step(model, state, feeds[SHARD_STEPS])
+                torch.cuda.synchronize()
+        runs[path] = (losses, norms, secs, peak)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    (pl, pn, ps, ppk), (sl, sn, ss, spk) = runs["plain"], runs["sharded"]
+    check(all(map(math.isfinite, pl + pn + sl + sn)),
+          f"losses {pl} {sl}, grad norms {pn} {sn}")
+    for a, b in zip(pl + pn, sl + sn):
+        check(abs(a - b) <= SHARD_RTOL * abs(a),
+              f"sharded {b} vs plain {a} beyond rtol {SHARD_RTOL}")
+    placements = sorted({str(tuple(p.placements))
+                         for p in sharded.parameters()})
+    print(f"{TRAIN_ARCH} at full width and depth on the (1, 1) NCCL mesh "
+          f"(placements {placements}), B = {TRAIN_B}, S = {TRAIN_S}, bf16, "
+          f"remat; set-up {setup_s:.1f} s; {SHARD_STEPS} steps: losses "
+          f"plain {fmt(pl)} sharded {fmt(sl)}, grad norms plain {fmt(pn)} "
+          f"sharded {fmt(sn)}; bit-equal {pl == sl and pn == sn}; s per step "
+          f"plain {fmt(ps)} sharded {fmt(ss)} (DTensor's host cost "
+          f"{float(np.median(ss)) - float(np.median(ps)):+.3f} s a step, "
+          f"medians); peak device memory plain {ppk / 2**30:.2f} GiB, "
+          f"sharded {spk / 2**30:.2f} GiB", flush=True)
+    want = analytic_train_flops(cfg, TRAIN_B, TRAIN_S)
+    rel = (counter.flops - want["total"]) / want["total"]
+    print(f"counted step (StepCounter, rank 0's shards): "
+          f"{counter.flops:.6e} FLOP ({counter.flops_by_op}), bytes "
+          f"{counter.bytes:.4e} (eager, no fusion), collectives "
+          f"{counter.collective_counts} ({counter.collective_bytes:.4e} B); "
+          f"analytic {want['total']:.6e} = 6NT {want['6NT']:.6e} + remat "
+          f"forward {want['remat']:.6e} + chunked attention "
+          f"{want['attention']:.6e}: counted/analytic - 1 = {rel:+.3e}",
+          flush=True)
+    check(abs(rel) <= FLOP_TOL, f"counted FLOPs {counter.flops} vs analytic "
+                                f"{want['total']}: {rel:+.3e}")
+    terms = roofline_terms(counter.flops, counter.bytes,
+                           counter.collective_bytes)
+    largest = max(terms, key=terms.get)
+    step_s = float(np.median(ss))
+    print(f"roofline of the sharded step on HW_H100: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in terms.items())
+          + f"; measured {step_s:.3f} s = {step_s / terms[largest]:.2f} x "
+          f"the largest term ({largest})", flush=True)
+    del params, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sharded_cache(dev, mesh) -> None:
+    """15 (b): minicpm3-4b at full width and depth in bf16, B 1: a prefill
+    of ``CACHE_PROMPT`` tokens and ``CACHE_GEN`` absorbed decode steps
+    through ``make_prefill_step``/``make_decode_step``, on plain tensors
+    and on the (1, 1) mesh (parameters by ``param_specs``, the cache by
+    ``cache_specs``)."""
+    import copy
+    from repro_torch import pspec
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import (cache_specs, distribute,
+                                             distribute_params)
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import get_model
+    from repro_torch.models.config import ShapeConfig
+    cfg = replace(get_config(CACHE_ARCH), param_dtype="bfloat16")
+    model = get_model(cfg)
+    params = model.init_params(3, device=dev)
+    params.requires_grad_(False)
+    sharded = distribute_params(copy.deepcopy(params), mesh)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (1, CACHE_PROMPT), generator=gen,
+                         device=dev)
+    max_len = CACHE_PROMPT + CACHE_GEN
+    shape = ShapeConfig("phase15", max_len, 1, "decode")
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    runs = {}
+    for path, p in (("plain", params), ("sharded", sharded)):
+        cache = model.init_cache(1, max_len, device=dev)
+        tk = toks
+        if path == "sharded":
+            specs = cache_specs(mesh, cfg, cache, shape)
+            cache = [{k: distribute(v, mesh, specs[i][k])
+                      if isinstance(v, torch.Tensor) else v
+                      for k, v in c.items()} for i, c in enumerate(cache)]
+        ctx = pspec.activation_mesh(mesh) if path == "sharded" else \
+            contextlib.nullcontext()
+        with ctx:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg, cache = prefill(p, cache, {"tokens": tk})
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t
+            logits, tokens, secs = [lg], [], []
+            for _ in range(CACHE_GEN):
+                nxt = lg.argmax(-1)
+                nxt = nxt.full_tensor() if pspec.is_dtensor(nxt) else nxt
+                tokens.append(int(nxt[0, 0]))
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                lg, cache = decode(p, cache, nxt)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                logits.append(lg)
+        full = [x.full_tensor() if pspec.is_dtensor(x) else x
+                for x in logits]
+        runs[path] = (torch.cat(full, 1).float(), tokens, pre_s, secs)
+        del cache
+    (pl, pt, pp, ps), (sl, st, sp, ss) = runs["plain"], runs["sharded"]
+    check(bool(torch.isfinite(sl).all()), "sharded logits finite")
+    check(st == pt, f"greedy tokens: sharded {st} vs plain {pt}")
+    rel = float(((sl - pl).abs() / pl.abs().clamp_min(1e-30)).max())
+    ok = bool(torch.allclose(sl, pl, rtol=CACHE_RTOL, atol=0.0))
+    print(f"{CACHE_ARCH} at full width and depth ({cfg.n_layers} layers), "
+          f"bf16, B 1: prefill of {CACHE_PROMPT} tokens + {CACHE_GEN} "
+          f"absorbed decode steps, the cache placed by cache_specs on the "
+          f"(1, 1) mesh: greedy tokens equal {st == pt} ({st}); logits "
+          f"bit-equal {bool(torch.equal(sl, pl))}, max relative difference "
+          f"{rel:.3e} (rtol {CACHE_RTOL}); prefill plain {pp * 1e3:.1f} ms, "
+          f"sharded {sp * 1e3:.1f} ms; decode plain "
+          f"{float(np.median(ps)) * 1e3:.2f} ms/token, sharded "
+          f"{float(np.median(ss)) * 1e3:.2f} ms/token (medians)", flush=True)
+    check(ok, f"sharded logits beyond rtol {CACHE_RTOL} of the plain ones")
+    del params, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dry_run_cells(out_dir: Path) -> None:
+    """15 (c): the dry run of the production meshes, one ``python -m
+    repro_torch.launch.dryrun`` process per cell, all started together;
+    every cell must succeed, and the card's memory must not grow."""
+    from repro_torch.launch import roofline_report
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    used0 = torch.cuda.mem_get_info()
+    alloc0 = torch.cuda.memory_allocated()
+    # the fake process group needs no card: hide it from the processes
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    procs = []
+    t = time.perf_counter()
+    for arch, shape, mesh, layers in DRY_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out",
+               str(out_dir), "--force"]
+        if layers:
+            cmd += ["--layers", str(layers)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    try:
+        outs = [proc.communicate(timeout=DRY_TIMEOUT)[0] for _, proc in procs]
+    finally:
+        for _, proc in procs:
+            proc.kill()
+    for (cmd, proc), out in zip(procs, outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith(("[", "="))]
+        print("\n".join(f"  {ln}" for ln in lines), flush=True)
+        check(proc.returncode == 0, f"{' '.join(cmd[2:])} exited "
+                                    f"{proc.returncode}: {out[-3000:]}")
+    secs = time.perf_counter() - t
+    torch.cuda.synchronize()
+    used1 = torch.cuda.mem_get_info()
+    grew = (used0[0] - used1[0], torch.cuda.memory_allocated() - alloc0)
+    for p in sorted(out_dir.glob("*.json")):
+        rec = json.loads(p.read_text())
+        check("memory" in rec, f"{p.name}: {rec.get('error', rec)}")
+        cell = roofline_report.analyze(rec)
+        colls = {k: (v["count"], f"{v['bytes']:.3e}")
+                 for k, v in rec["collective_bytes"].items() if v["count"]}
+        cut = f" ({rec['cut']})" if rec.get("cut") else ""
+        if rec.get("stand_in"):
+            cut += f" [stand-in: {rec['stand_in']}]"
+        print(f"  {rec['arch']} {rec['shape']} {rec['mesh']}{cut}: "
+              f"{rec['run_s']} s, {rec['flops_per_device']:.4e} FLOP/dev, "
+              f"{rec['bytes_per_device']:.4e} B/dev (eager), argument bytes "
+              f"{rec['memory']['argument_bytes']:.4e}, peak "
+              f"{rec['memory']['peak_bytes']:.4e}; collectives (count, B) "
+              f"{colls}", flush=True)
+        print("  " + roofline_report.table([cell]).splitlines()[-1],
+              flush=True)
+    print(f"dry run: {len(DRY_CELLS)} processes in {secs:.1f} s; the "
+          f"card's free memory fell {grew[0]} B, allocated grew {grew[1]} B",
+          flush=True)
+    check(grew[0] <= 0 and grew[1] == 0,
+          f"the dry run took card memory: {grew}")
+
+
+def sharded_phase(modules, dev) -> None:
+    """Phase 15: (a) the sharded olmo-1b step and (b) minicpm3-4b's caches
+    on a (1, 1) NCCL mesh, (c) the dry run of the production meshes; the
+    kernels' counters zeroed before and read after (none is on these
+    paths: the step builders take the chunked impls)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    for mod in modules:
+        mod.reset_counts()
+    lap = lap_clock()
+    open_nccl_group(dev)
+    try:
+        mesh = make_local_mesh(1, 1)
+        sharded_train(dev, mesh)
+        lap("(a) the sharded olmo-1b step")
+        sharded_cache(dev, mesh)
+        lap("(b) minicpm3-4b's caches on the mesh")
+    finally:
+        dist.destroy_process_group()
+    dry_run_cells(Path(__file__).resolve().parent / "build" /
+                  "dryrun_phase15")
+    lap("(c) the dry run")
+    ran = {f"{kind}{k}": v for mod in modules
+           for kind, d in (("", mod.LAUNCHES), ("plain ", mod.PLAIN_CALLS))
+           for k, v in d.items()}
+    check(sum(ran.values()) == 0, f"kernels ran in phase 15: {ran}")
+
+
 # what a kernel's row may carry beside the contract's keys (the chosen
 # kernel of the GEMM, flash attention and the scan, the scan's plan, device
 # times, the mma.sync kernels', the cuda_core kernel's (at MLA's heads) and
@@ -3230,6 +3598,10 @@ def main() -> int:
                                                           dev)
     rows["flash_attention_wgmma_dv"] = row
     phase_done("14 (MLA, whisper, the dry run)")
+
+    # -- 15. distributed launch ----------------------------------------------
+    sharded_phase((K, FA, SS, SG), dev)
+    phase_done("15 (distributed launch)")
     print(f"-- the whole script took {time.perf_counter() - start:.1f} s",
           flush=True)
 

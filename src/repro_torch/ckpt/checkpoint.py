@@ -30,10 +30,13 @@ gives a void array) with ``"bfloat16"`` in the manifest, so bfloat16
 leaves are written here as those bits under that descr (the file equals
 the reference's byte for byte) and read back from the bits.
 
-Not ported: ``load_pytree``'s ``shardings`` (re-sharding onto a device
-mesh on restore) belongs to distributed launch (ROADMAP.md, A11).  A
-restored leaf goes to the device of its ``like`` leaf (the CPU for a
-``meta`` tensor, a numpy array, or no ``like``).
+A restored leaf goes to the device of its ``like`` leaf (the CPU for a
+``meta`` tensor, a numpy array, or no ``like``).  With ``shardings`` (a
+tree like ``like`` of ``launch.sharding.Named`` placements on a
+``DeviceMesh``, None for a leaf to leave whole), each leaf becomes a
+DTensor on its mesh, every rank cutting its own shard from the whole
+array on its host: the reference's elastic-reshard path, where the mesh
+the checkpoint was saved from does not matter.
 """
 
 from __future__ import annotations
@@ -149,26 +152,40 @@ def _as_tree(node):
     return node
 
 
-def _restore_like(like, loaded: Dict[str, torch.Tensor], prefix: str = ""):
+def _restore_like(like, loaded: Dict[str, torch.Tensor], shardings,
+                  prefix: str = ""):
     if isinstance(like, Mapping):
-        return {k: _restore_like(v, loaded, f"{prefix}[{k!r}]")
+        return {k: _restore_like(v, loaded, _at(shardings, k),
+                                 f"{prefix}[{k!r}]")
                 for k, v in like.items()}
     if isinstance(like, (list, tuple)):
-        return type(like)(_restore_like(v, loaded, f"{prefix}[{i}]")
+        return type(like)(_restore_like(v, loaded, _at(shardings, i),
+                                        f"{prefix}[{i}]")
                           for i, v in enumerate(like))
     t = loaded[prefix]
     ref = like if isinstance(like, torch.Tensor) else torch.from_numpy(
         np.asarray(like))
+    if shardings is not None:
+        from ..launch.sharding import distribute
+        return distribute(t.to(ref.dtype), shardings.mesh, shardings)
     device = ref.device if ref.device.type != "meta" else torch.device("cpu")
     return t.to(device=device, dtype=ref.dtype)
 
 
-def load_pytree(path: str | Path, like=None):
+def _at(shardings, key):
+    return None if shardings is None else shardings[key]
+
+
+def load_pytree(path: str | Path, like=None, shardings=None):
     """The checkpoint at ``path`` as tensors.  With ``like`` (a tree of
     tensors, ``meta`` ones included, or numpy arrays) the result has its
     structure, each leaf cast to the dtype of its ``like`` leaf; without,
     the tree is rebuilt from the keys (dicts, and lists for indices) with
-    the saved dtypes."""
+    the saved dtypes.  ``shardings`` (with ``like``): a tree of
+    ``launch.sharding.Named`` placements; each leaf is placed on its mesh
+    as a DTensor (elastic re-sharding)."""
+    if shardings is not None and like is None:
+        raise ValueError("shardings need the structure of like")
     path = Path(path)
     manifest = json.loads((path / MANIFEST).read_text())
     by_key = {e["key"]: e for e in manifest["index"]}
@@ -181,7 +198,7 @@ def load_pytree(path: str | Path, like=None):
             raise KeyError(f"checkpoint {path} missing leaf {key!r}")
         loaded[key] = _tensor(np.load(path / e["file"]), e["dtype"])
     if like is not None:
-        return _restore_like(like, loaded)
+        return _restore_like(like, loaded, shardings)
     root: Dict[Any, Any] = {}
     for key, t in loaded.items():
         *parents, last = _key_path(key)
@@ -213,11 +230,11 @@ class CheckpointManager:
         self._gc()
         return path
 
-    def restore_or_none(self, like=None):
+    def restore_or_none(self, like=None, shardings=None):
         path = latest_checkpoint(self.directory)
         if path is None:
             return None, None
-        tree = load_pytree(path, like)
+        tree = load_pytree(path, like, shardings)
         return tree, manifest_extra(path)
 
     def _gc(self) -> None:

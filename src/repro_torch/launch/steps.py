@@ -14,6 +14,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from .. import pspec
 from ..device import DeviceLike, resolve_device
 from ..models import get_model
 from ..models.config import ModelConfig
@@ -25,9 +26,34 @@ __all__ = ["cross_entropy", "make_loss_fn", "make_train_step",
            "abstract_train_state"]
 
 
+def _vocab_sharded(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a DTensor whose last (vocabulary) dim is split
+    over a mesh dim of more than one rank."""
+    return pspec.is_dtensor(t) and any(
+        p.is_shard(t.dim() - 1) and t.device_mesh.size(i) > 1
+        for i, p in enumerate(t.placements))
+
+
 def cross_entropy(logits: torch.Tensor, labels) -> torch.Tensor:
     """Mean next-token negative log-likelihood, the log-softmax in
-    float32."""
+    float32.  Logits sharded over the vocabulary (a DTensor on a mesh)
+    take the vocabulary-parallel form, log Σ exp less the label's logit,
+    each a reduction across the shards (a max, then sums), where a
+    log-softmax would gather the vocabulary onto every rank of the TP
+    axis, and the gradient of the output projection with it."""
+    if _vocab_sharded(logits):
+        # partial sums of the output projection (whisper's tied embedding
+        # contracts a data-sharded d) resolve onto the batch first
+        z = pspec.shard(logits, "batch", None, "tp").float()
+        # each reduction over the vocabulary resolves onto the batch
+        # layout at once, so that the per-token terms, and the gradient
+        # they send back into z, keep the sequence whole
+        rows = lambda t: pspec.shard(t, "batch", None)  # noqa: E731
+        m = rows(z.detach().amax(dim=-1))
+        lse = torch.log(rows(torch.exp(z - m[..., None]).sum(dim=-1))) + m
+        hit = torch.arange(z.shape[-1], device=z.device) == \
+            labels.long()[..., None]
+        return (lse - rows((z * hit).sum(dim=-1))).mean()
     lp = torch.log_softmax(logits.float(), dim=-1)
     labels = torch.as_tensor(labels, dtype=torch.long, device=lp.device)
     nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
@@ -41,7 +67,11 @@ def make_loss_fn(cfg: ModelConfig, remat: bool = True) -> Callable:
         logits, aux = model.logits_and_aux(params, batch, remat=remat)
         if cfg.n_patches:  # VLM: patch prefix carries no LM loss
             logits = logits[:, cfg.n_patches:]
-        loss = cross_entropy(logits, batch["labels"])
+        # on a mesh the means are partial sums: resolve them to replicas,
+        # so that the backward starts from a replica (DTensor cannot turn
+        # a shard of the gradient back into a partial sum before 2.13)
+        loss = pspec.shard(cross_entropy(logits, batch["labels"]))
+        aux = pspec.shard(aux)
         return loss + aux, {"loss": loss, "aux": aux}
 
     return loss_fn
@@ -77,16 +107,14 @@ def make_train_step(cfg: ModelConfig, opt: Optional[AdamWConfig] = None,
         if n_micro == 1:
             loss, metrics, grads = grads_of(params, weights, batch)
         else:
-            micro = {k: torch.as_tensor(v).reshape(
-                (n_micro, len(v) // n_micro) + tuple(v.shape[1:]))
-                for k, v in batch.items()}
+            micro = {k: _split(v, n_micro) for k, v in batch.items()}
             grads, loss = None, 0.0
             for i in range(n_micro):
                 l, metrics, g = grads_of(
-                    params, weights, {k: v[i] for k, v in micro.items()})
+                    params, weights, {k: pspec.shard(v[i], "batch")
+                                      for k, v in micro.items()})
                 if grads is None:
-                    grads = {n: torch.zeros(t.shape, dtype=torch.float32,
-                                            device=t.device)
+                    grads = {n: torch.zeros_like(t, dtype=torch.float32)
                              for n, t in g.items()}
                 for n in weights:
                     grads[n].add_(g[n])
@@ -99,6 +127,17 @@ def make_train_step(cfg: ModelConfig, opt: Optional[AdamWConfig] = None,
         return params, opt_state, metrics
 
     return train_step
+
+
+def _split(v, n_micro: int) -> torch.Tensor:
+    """(B, ...) -> (n_micro, B / n_micro, ...).  A batch sharded over the
+    data axes is gathered first (DTensor cannot cut a sharded dim into
+    microbatches that straddle ranks); the train step shards each
+    microbatch again."""
+    v = torch.as_tensor(v)
+    if pspec.is_dtensor(v):
+        v = pspec.shard(v, *[None] * v.dim())
+    return v.reshape((n_micro, len(v) // n_micro) + tuple(v.shape[1:]))
 
 
 def init_train_state(cfg: ModelConfig, generator: torch.Generator,

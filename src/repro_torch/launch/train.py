@@ -7,7 +7,9 @@ pipeline, AdamW + warmup/cosine schedule, atomic checkpoints + auto-resume
 checkpoint.  Checkpoints hold the training state in the reference's
 layout (``convert.train_state_tree``), so a run either package trained
 resumes in the other.  Runs on ``cuda`` unless the caller asks for another
-device; no device mesh (distributed launch is ROADMAP.md's A11).
+device.  It takes no mesh: the reference's accepts one and ignores it;
+sharded steps run through ``launch.sharding`` and ``pspec.activation_mesh``
+(``chip_smoke.py`` phase 15).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\

@@ -21,7 +21,9 @@ The parameters live in ``EncDec``: ``enc_pos``, ``enc_layers`` (one
 and a parameter requires a gradient (the reference applies no remat
 here), else it runs under ``torch.inference_mode``; ``prefill_encdec`` and
 ``decode_step_encdec`` always do, and update the caches in place.  The
-reference's sharding hints have no counterpart here.
+reference's sharding hints sit where it has them (``pspec.shard``: the
+residual stream batch- and sequence-sharded); outside a registered mesh
+they return their input.
 """
 
 from __future__ import annotations
@@ -32,11 +34,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import pspec
 from .config import ModelConfig
 from . import layers as L
 from .layers import init_norm, norm
 from .lm import (Norm, Params, _dtype, _layer_cache, _parameter, _tokens,
-                 cast_tree, records_grad, reference_layout)
+                 _unrecorded, cast_tree, lookup, records_grad,
+                 reference_layout, unrecorded)
 
 __all__ = ["EncDec", "init_params_encdec", "param_specs_encdec",
            "abstract_params_encdec", "stacks_encdec", "encode",
@@ -173,21 +177,33 @@ def _zero_positions(s: int, device) -> torch.Tensor:
     return torch.zeros((1, s), dtype=torch.long, device=device)
 
 
+def _layer_in(x: torch.Tensor, ln) -> torch.Tensor:
+    """A sublayer's input: the normed residual, its sequence gathered (as
+    ``lm``'s layers do: DTensor cannot multiply an activation split over
+    both batch and sequence)."""
+    return pspec.shard(norm("layernorm", x, ln), "batch", None, None)
+
+
+def _branch(t: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output on the residual's layout: the row-parallel
+    product's partial sums resolved before the add (``lm._layer_apply``)."""
+    return pspec.shard(t, "batch", "sp", None)
+
+
 def _cross_attn(lp, x: torch.Tensor, enc_k: torch.Tensor,
                 enc_v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     a = cfg.attention
-    b, s, _ = x.shape
-    q = (x @ lp["wq"]).reshape(b, s, a.n_heads, a.head_dim)
-    out = L.dense_attention(q, enc_k, enc_v, causal=False)
-    return out.reshape(b, s, a.n_heads * a.head_dim) @ lp["wo"]
+    q = L.split_heads(x @ lp["wq"], a.n_heads, a.head_dim)
+    out = L._attend(q, enc_k, enc_v, causal=False, window=0, impl="dense",
+                    chunk=0)
+    return _branch(L.merge_heads(out) @ lp["wo"])
 
 
 def _enc_kv(lp_cross, enc_out: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     a = cfg.attention
-    b, t, _ = enc_out.shape
-    k = (enc_out @ lp_cross["wk"]).reshape(b, t, a.n_heads, a.head_dim)
-    v = (enc_out @ lp_cross["wv"]).reshape(b, t, a.n_heads, a.head_dim)
+    k = L.split_heads(enc_out @ lp_cross["wk"], a.n_heads, a.head_dim)
+    v = L.split_heads(enc_out @ lp_cross["wv"], a.n_heads, a.head_dim)
     return k, v
 
 
@@ -196,7 +212,7 @@ def _pass(fn, params: EncDec, *args):
     autograd records it (``lm.records_grad``)."""
     if records_grad(params):
         return fn(params, *args)
-    with torch.inference_mode():
+    with unrecorded(params):
         return fn(params, *args)
 
 
@@ -210,30 +226,32 @@ def _encode(params: EncDec, cfg: ModelConfig, frames) -> torch.Tensor:
     dtype = _dtype(cfg.compute_dtype)
     frames = torch.as_tensor(frames, device=params.embed.device)
     x = frames.to(dtype) + params.enc_pos.to(dtype)[None]
+    x = pspec.shard(x, "batch", "sp", None)
     zero_pos = _zero_positions(x.shape[1], x.device)
     for layer in params.enc_layers:
         lp = cast_tree(layer.tree(), dtype)
-        h = norm("layernorm", x, lp["ln1"])
+        h = _layer_in(x, lp["ln1"])
         mixed, _ = L.attention_block(lp["attn"], h, cfg.attention,
                                      positions=zero_pos, causal=False,
                                      impl="dense")
-        x = x + mixed
-        h = norm("layernorm", x, lp["ln2"])
-        x = x + L.mlp_block(lp["mlp"], h, "gelu")
-    return norm("layernorm", x, params.enc_norm.tree())
+        x = x + _branch(mixed)
+        h = _layer_in(x, lp["ln2"])
+        x = pspec.shard(x + _branch(L.mlp_block(lp["mlp"], h, "gelu")),
+                        "batch", "sp", None)
+    return _layer_in(x, params.enc_norm.tree())
 
 
 def _decoder_input(params: EncDec, tokens: torch.Tensor, start: int,
                    dtype: torch.dtype) -> torch.Tensor:
     s = tokens.shape[1]
-    return (params.embed[tokens].to(dtype)
+    return (lookup(params.embed, tokens).to(dtype)
             + params.dec_pos[start:start + s].to(dtype)[None])
 
 
 def _logits(params: EncDec, x: torch.Tensor, dtype: torch.dtype
             ) -> torch.Tensor:
-    x = norm("layernorm", x, params.final_norm.tree())
-    return x @ params.embed.T.to(dtype)
+    return _layer_in(x, params.final_norm.tree()) @ \
+        pspec.pin_grad(params.embed).T.to(dtype)
 
 
 def forward_encdec(params: EncDec, cfg: ModelConfig, tokens,
@@ -247,20 +265,22 @@ def _forward(params: EncDec, cfg: ModelConfig, tokens, frames
              ) -> torch.Tensor:
     dtype = _dtype(cfg.compute_dtype)
     enc_out = _encode(params, cfg, frames)
-    x = _decoder_input(params, _tokens(params, tokens), 0, dtype)
+    x = pspec.shard(_decoder_input(params, _tokens(params, tokens), 0,
+                                   dtype), "batch", "sp", None)
     zero_pos = _zero_positions(x.shape[1], x.device)
     for layer in params.dec_layers:
         lp = cast_tree(layer.tree(), dtype)
-        h = norm("layernorm", x, lp["ln1"])
+        h = _layer_in(x, lp["ln1"])
         mixed, _ = L.attention_block(lp["self"], h, cfg.attention,
                                      positions=zero_pos, causal=True,
                                      impl="chunked", chunk=1024)
-        x = x + mixed
-        h = norm("layernorm", x, lp["lnx"])
+        x = x + _branch(mixed)
+        h = _layer_in(x, lp["lnx"])
         x = x + _cross_attn(lp["cross"], h,
                             *_enc_kv(lp["cross"], enc_out, cfg), cfg)
-        h = norm("layernorm", x, lp["ln2"])
-        x = x + L.mlp_block(lp["mlp"], h, "gelu")
+        h = _layer_in(x, lp["ln2"])
+        x = pspec.shard(x + _branch(L.mlp_block(lp["mlp"], h, "gelu")),
+                        "batch", "sp", None)
     return _logits(params, x, dtype)
 
 
@@ -285,7 +305,7 @@ def init_cache_encdec(cfg: ModelConfig, batch: int, max_len: int,
             "cross_k": cross(), "cross_v": cross()}
 
 
-@torch.inference_mode()
+@_unrecorded
 def prefill_encdec(params: EncDec, cfg: ModelConfig, tokens, frames,
                    cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
     """Encode the audio and run the prompt tokens, filling the self- and
@@ -293,29 +313,30 @@ def prefill_encdec(params: EncDec, cfg: ModelConfig, tokens, frames,
     (B, 1, V), caches)."""
     dtype = _dtype(cfg.compute_dtype)
     enc_out = _encode(params, cfg, frames)
-    x = _decoder_input(params, _tokens(params, tokens), 0, dtype)
+    x = pspec.shard(_decoder_input(params, _tokens(params, tokens), 0,
+                                   dtype), "batch", "sp", None)
     zero_pos = _zero_positions(x.shape[1], x.device)
     self_c = []
     for i, layer in enumerate(params.dec_layers):
         lp = cast_tree(layer.tree(), dtype)
-        h = norm("layernorm", x, lp["ln1"])
+        h = _layer_in(x, lp["ln1"])
         mixed, nc = L.attention_block(lp["self"], h, cfg.attention,
                                       positions=zero_pos, causal=True,
                                       cache=cache["self"][i],
                                       impl="chunked", chunk=1024)
         self_c.append(nc)
-        x = x + mixed
+        x = x + _branch(mixed)
         ck, cv = _enc_kv(lp["cross"], enc_out, cfg)
         cache["cross_k"][i].copy_(ck)
         cache["cross_v"][i].copy_(cv)
-        h = norm("layernorm", x, lp["lnx"])
+        h = _layer_in(x, lp["lnx"])
         x = x + _cross_attn(lp["cross"], h, ck, cv, cfg)
-        h = norm("layernorm", x, lp["ln2"])
-        x = x + L.mlp_block(lp["mlp"], h, "gelu")
+        h = _layer_in(x, lp["ln2"])
+        x = x + _branch(L.mlp_block(lp["mlp"], h, "gelu"))
     return _logits(params, x[:, -1:], dtype), dict(cache, self=self_c)
 
 
-@torch.inference_mode()
+@_unrecorded
 def decode_step_encdec(params: EncDec, cfg: ModelConfig, token,
                        cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
     """One decode step: token (B, 1) -> logits (B, 1, V), caches (the
@@ -327,15 +348,15 @@ def decode_step_encdec(params: EncDec, cfg: ModelConfig, token,
     self_c = []
     for i, layer in enumerate(params.dec_layers):
         lp = cast_tree(layer.tree(), dtype)
-        h = norm("layernorm", x, lp["ln1"])
+        h = _layer_in(x, lp["ln1"])
         mixed, nc = L.attention_block(lp["self"], h, cfg.attention,
                                       positions=zero_pos, causal=True,
                                       cache=cache["self"][i], impl="dense")
         self_c.append(nc)
-        x = x + mixed
-        h = norm("layernorm", x, lp["lnx"])
+        x = x + _branch(mixed)
+        h = _layer_in(x, lp["lnx"])
         x = x + _cross_attn(lp["cross"], h, cache["cross_k"][i],
                             cache["cross_v"][i], cfg)
-        h = norm("layernorm", x, lp["ln2"])
-        x = x + L.mlp_block(lp["mlp"], h, "gelu")
+        h = _layer_in(x, lp["ln2"])
+        x = x + _branch(L.mlp_block(lp["mlp"], h, "gelu"))
     return _logits(params, x, dtype), dict(cache, self=self_c)

@@ -19,12 +19,14 @@ compressed cache.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import pspec
 from .config import AttentionConfig
 from ..kernels import flash_attention as _fa
 
@@ -32,7 +34,8 @@ __all__ = [
     "rmsnorm", "layernorm", "nonparametric_ln", "norm", "init_norm",
     "rope_frequencies", "apply_rope",
     "chunked_attention", "dense_attention",
-    "attention_block", "mla_block", "mlp_block",
+    "attention_block", "mla_block", "mlp_block", "split_heads",
+    "merge_heads",
     "init_attention", "init_mla", "init_mlp", "normal",
 ]
 
@@ -184,9 +187,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                q_offset=q_offset)
     assert t % chunk == 0, (t, chunk)
     dv = v.shape[-1]
-    kf = _expand_kv(k, h)
-    vf = _expand_kv(v, h)
-    qf = _scaled(q, dq).float()
+    # the reference's head pins (uneven when H doesn't divide TP, e.g.
+    # MLA's 40 heads); on a mesh ``_attend_on_mesh`` runs this function on
+    # each rank's shards, with the heads already split
+    kf = pspec.shard(_expand_kv(k, h), "batch", None, "tp_pad", None)
+    vf = pspec.shard(_expand_kv(v, h), "batch", None, "tp_pad", None)
+    qf = pspec.shard(_scaled(q, dq), "batch", None, "tp_pad", None).float()
     qpos = q_offset + torch.arange(s, device=q.device)
     m = torch.full((b, h, s), NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
@@ -214,6 +220,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _attend(q, k, v, *, causal, window, impl, chunk, q_offset=0):
+    if pspec.is_dtensor(q):
+        return _attend_on_mesh(q, k, v, causal=causal, window=window,
+                               impl=impl, chunk=chunk, q_offset=q_offset)
     if impl == "dense":
         return dense_attention(q, k, v, causal=causal, window=window,
                                q_offset=q_offset)
@@ -229,6 +238,36 @@ def _attend(q, k, v, *, causal, window, impl, chunk, q_offset=0):
         return out.reshape(b, h, s, dv).movedim(1, 2)
     return chunked_attention(q, k, v, causal=causal, window=window,
                              chunk=chunk, q_offset=q_offset)
+
+
+def _attend_on_mesh(q, k, v, **kw):
+    """``_attend`` on DTensors: every (batch, head) pair is independent, so
+    attention runs on each rank's shards (``local_map``) with q, k and v
+    split alike, batch over the data axes and heads over TP.  k and v are
+    expanded to q's heads first, as views, so that a split KV head dim
+    splits its groups with it.  Heads that do not divide TP (MLA's 40 on
+    16) are padded with zero heads to the next multiple, as XLA pads the
+    reference's ``tp_pad`` split (40 to 48), and cut off after."""
+    from torch.distributed.tensor.experimental import local_map
+    b, t, kv, dq = k.shape
+    h, dv = q.shape[2], v.shape[-1]
+    if kv != h:
+        k = k[:, :, :, None].expand(b, t, kv, h // kv, dq).reshape(b, t, h, dq)
+        v = v[:, :, :, None].expand(b, t, kv, h // kv, dv).reshape(b, t, h, dv)
+    pad = -h % pspec.axis_size("tp_pad")
+    if pad:
+        q, k, v = (torch.cat([pspec.shard(x, "batch", None, None, None),
+                              torch.zeros(x.shape[:2] + (pad, x.shape[3]),
+                                          dtype=x.dtype, device=x.device)],
+                             dim=2) for x in (q, k, v))
+    heads = pspec.placements_of(q, "batch", None, "tp_pad", None)
+    attend = local_map(functools.partial(_attend, **kw),
+                       out_placements=(heads,),
+                       in_placements=(heads, heads, heads),
+                       device_mesh=q.device_mesh, redistribute_inputs=True)
+    out = attend(q, k, v)
+    return pspec.shard(out, "batch", None, None, None)[:, :, :h] if pad \
+        else out
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +289,33 @@ def init_attention(gen, cfg: AttentionConfig, d_model: int,
     }
 
 
+def _reshape_heads(t: torch.Tensor, heads: int, shape) -> torch.Tensor:
+    """``t.reshape(B, S, *shape)``.  Where the heads do not split evenly
+    over TP (mistral-large's 8 KV heads, whisper's 12 heads, MLA's 40 on
+    16), DTensor can neither unflatten a split that cuts a head nor
+    flatten an uneven one, where XLA pads: the reshape then runs on whole
+    heads, each rank's batch rows (``local_map`` pins that layout in the
+    gradient too)."""
+    if heads % pspec.axis_size("tp") == 0:
+        return t.reshape(t.shape[0], t.shape[1], *shape)
+    from torch.distributed.tensor.experimental import local_map
+    rows = pspec.placements_of(t, "batch")
+    reshape = local_map(lambda x: x.reshape(x.shape[0], x.shape[1], *shape),
+                        out_placements=(rows,), in_placements=(rows,),
+                        device_mesh=t.device_mesh, redistribute_inputs=True)
+    return reshape(t)
+
+
+def split_heads(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """(B, S, heads * head_dim) -> (B, S, heads, head_dim)."""
+    return _reshape_heads(t, heads, (heads, head_dim))
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) -> (B, S, H * D)."""
+    return _reshape_heads(t, t.shape[2], (t.shape[2] * t.shape[3],))
+
+
 def attention_block(params: Params, x: torch.Tensor, cfg: AttentionConfig, *,
                     positions: torch.Tensor, causal: bool = True,
                     cache: Optional[Dict] = None, impl: str = "chunked",
@@ -263,9 +329,9 @@ def attention_block(params: Params, x: torch.Tensor, cfg: AttentionConfig, *,
     cache): use the returned cache, not the one passed in."""
     a = cfg
     b, s, _ = x.shape
-    q = (x @ params["wq"]).reshape(b, s, a.n_heads, a.head_dim)
-    k = (x @ params["wk"]).reshape(b, s, a.n_kv_heads, a.head_dim)
-    v = (x @ params["wv"]).reshape(b, s, a.n_kv_heads, a.head_dim)
+    q = split_heads(x @ params["wq"], a.n_heads, a.head_dim)
+    k = split_heads(x @ params["wk"], a.n_kv_heads, a.head_dim)
+    v = split_heads(x @ params["wv"], a.n_kv_heads, a.head_dim)
     q = apply_rope(q, positions, a.rope_theta)
     k = apply_rope(k, positions, a.rope_theta)
 
@@ -285,10 +351,10 @@ def attention_block(params: Params, x: torch.Tensor, cfg: AttentionConfig, *,
             # prefill longer than the ring: keep the last t positions at
             # their ring slots (slot of position p is p % t)
             shift = s % t
-            ck = torch.roll(k[:, -t:].to(kd), shift, dims=1)
-            cv = torch.roll(v[:, -t:].to(vd), shift, dims=1)
-            kpos = torch.roll(torch.arange(s - t, s, dtype=torch.int32,
-                                           device=x.device), shift)
+            ck = _roll(k[:, -t:].to(kd), shift, 1)
+            cv = _roll(v[:, -t:].to(vd), shift, 1)
+            kpos = _roll(torch.arange(s - t, s, dtype=torch.int32,
+                                      device=x.device), shift, 0)
         else:
             ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
             ck[:, :s] = k.to(kd)
@@ -303,8 +369,18 @@ def attention_block(params: Params, x: torch.Tensor, cfg: AttentionConfig, *,
     else:
         out = _attend(q, k, v, causal=causal, window=a.window, impl=impl,
                       chunk=chunk)
-    out = out.reshape(b, s, a.n_heads * a.head_dim) @ params["wo"]
+    out = merge_heads(out) @ params["wo"]
     return out, new_cache
+
+
+def _roll(x: torch.Tensor, shift: int, dim: int) -> torch.Tensor:
+    """``torch.roll(x, shift, dim)`` (a copy) as slices and a concat,
+    which DTensor shards (it has no rule for ``roll`` before torch 2.13)."""
+    n = x.shape[dim]
+    if shift % n == 0:
+        return x.clone()
+    return torch.cat([x.narrow(dim, n - shift, shift),
+                      x.narrow(dim, 0, n - shift)], dim=dim)
 
 
 def _decode_attention(q, ck, cv, kpos, cur_pos, window: int = 0):
@@ -315,12 +391,16 @@ def _decode_attention(q, ck, cv, kpos, cur_pos, window: int = 0):
     b, s, h, d = q.shape
     t, kv = ck.shape[1], ck.shape[2]
     g = h // kv
+    # on a mesh the scores split over the cache's sequence dim; q keeps its
+    # heads whole (a split of them would cut the KV groups, and DTensor
+    # cannot flatten batch and heads both split)
+    q = pspec.shard(q, "batch", None, None, None)
     qg = _scaled(q, d).reshape(b, s, kv, g, d)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), ck.float())
     mask = (kpos >= 0) & (kpos <= cur_pos)
     if window > 0:
         mask &= kpos > cur_pos - window
-    scores = scores.masked_fill_(~mask, NEG)
+    scores = scores.masked_fill(~mask, NEG)   # out of place: DTensor scores
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p.to(cv.dtype).float(),
                        cv.float())
@@ -373,7 +453,7 @@ def mla_block(params: Params, x: torch.Tensor, cfg: AttentionConfig, *,
     dn, dr, dv = a.qk_nope_head_dim, a.qk_rope_head_dim, a.v_head_dim
 
     cq = rmsnorm(x @ params["wdq"], params["q_norm"]["scale"])
-    q = (cq @ params["wuq"]).reshape(b, s, nh, dn + dr)
+    q = split_heads(cq @ params["wuq"], nh, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, a.rope_theta)
 
@@ -399,7 +479,7 @@ def mla_block(params: Params, x: torch.Tensor, cfg: AttentionConfig, *,
         s_rope = torch.einsum("bshd,btd->bhst", f32(q_rope), f32(cr))
         scores = (s_lat + s_rope) * scale
         valid = torch.arange(cc.shape[1], device=x.device) < pos + s
-        scores = scores.masked_fill_(~valid, NEG)
+        scores = scores.masked_fill(~valid, NEG)
         p = torch.softmax(scores, dim=-1)
         ctx = torch.einsum("bhst,btr->bshr", p, f32(cc))          # (B,S,H,R)
         out = torch.einsum("bshr,hrd->bshd", ctx,
@@ -412,7 +492,7 @@ def mla_block(params: Params, x: torch.Tensor, cfg: AttentionConfig, *,
         qfull = torch.cat([q_nope, q_rope], dim=-1)
         out = _attend(qfull, k, v, causal=causal, window=0, impl=impl,
                       chunk=chunk)
-    out = out.reshape(b, s, nh * dv) @ params["wo"]
+    out = merge_heads(out) @ params["wo"]
     return out, new_cache
 
 

@@ -40,20 +40,28 @@ that cast once, in place, for serving, so a pass then copies nothing.
 Caches are updated in place (see ``layers.attention_block``).  The layer
 output's cotangent is cast to the compute dtype
 (``_grad_to_compute_dtype``), as in the reference.  The reference's
-``_barrier`` (an XLA scheduling hint, the identity) and its sharding hints
-have no counterpart in eager PyTorch.  The encoder-decoder family is
+``_barrier`` (an XLA scheduling hint, the identity) has no counterpart in
+eager PyTorch.  Its sharding hints sit where it has them
+(``pspec.shard``): outside a registered mesh, or on plain tensors, they
+return their input; on DTensor parameters under
+``pspec.activation_mesh`` they redistribute the activations, and a pass
+that autograd does not record runs under ``torch.no_grad`` rather than
+inference mode (``unrecorded``).  The encoder-decoder family is
 ``models.encdec``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import pspec
 from .config import ModelConfig
 from . import layers as L
 from .layers import init_norm, norm
@@ -64,7 +72,7 @@ __all__ = ["pattern_period", "cast_tree", "init_params", "param_specs",
            "abstract_params", "stacks", "reference_layout", "forward",
            "forward_with_aux", "init_cache", "prefill", "decode_step", "LM",
            "Block", "Attention", "MLA", "Mamba", "MLP", "MoE", "Norm",
-           "Params", "keeps_f32", "records_grad"]
+           "Params", "keeps_f32", "records_grad", "unrecorded"]
 
 # parameters kept in float32 regardless of compute dtype (numerics-critical)
 _F32_LEAVES = ("A_log", "D", "dt_bias", "router")
@@ -342,7 +350,12 @@ def _layer_apply(cfg: ModelConfig, kind: str, is_moe: bool, lp: Mapping,
                  cache: Optional[Dict], impl: str, chunk: int,
                  ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = norm(cfg.norm, x, lp["ln1"])
+    # Megatron-SP discipline: the residual is sequence-sharded between
+    # layers and gathered at layer entry.  The reference keeps serving's h
+    # sequence-sharded into the projections; DTensor cannot multiply an
+    # activation split over both batch and sequence (no strided split of a
+    # flattened (B, S) before torch 2.13), so serving gathers it too
+    h = pspec.shard(norm(cfg.norm, x, lp["ln1"]), "batch", None, None)
     if kind == "attn":
         fn = L.mla_block if cfg.attention.kind == "mla" else \
             L.attention_block
@@ -352,37 +365,67 @@ def _layer_apply(cfg: ModelConfig, kind: str, is_moe: bool, lp: Mapping,
     else:
         mixed, new_cache = mamba_block(lp["mix"], h, cfg.ssm, cache=cache,
                                        impl=cfg.ssm_impl)
-    x = _grad_to_compute_dtype(x + mixed)
+    # the row-parallel products' partial sums resolve onto the residual's
+    # layout before the add (DTensor's gradient cannot return a shard to a
+    # partial sum before torch 2.13)
+    mixed = pspec.shard(mixed, "batch", "sp", None)
+    x = _grad_to_compute_dtype(pspec.shard(x + mixed, "batch", "sp", None))
     if "ffn" not in lp:          # pure-mamba layer (falcon-mamba)
         return x, new_cache, aux
-    h = norm(cfg.norm, x, lp["ln2"])
+    h = pspec.shard(norm(cfg.norm, x, lp["ln2"]), "batch", None, None)
     if is_moe:
         ff, aux = moe_block(lp["ffn"], h, cfg.moe, activation=cfg.activation)
     else:
         ff = L.mlp_block(lp["ffn"], h, cfg.activation)
-    return _grad_to_compute_dtype(x + ff), new_cache, aux
+    ff = pspec.shard(ff, "batch", "sp", None)
+    return (_grad_to_compute_dtype(pspec.shard(x + ff, "batch", "sp", None)),
+            new_cache, aux)
 
 
 def _tokens(params: LM, tokens) -> torch.Tensor:
-    return torch.as_tensor(tokens, dtype=torch.long,
-                           device=params.embed.device)
+    t = torch.as_tensor(tokens, dtype=torch.long, device=params.embed.device)
+    # the lookup takes the batch over one mesh axis: DTensor's index rule
+    # refuses a dim split over two (the multi-pod mesh's pod and data)
+    return pspec.shard(t, "fsdp", *[None] * (t.dim() - 1))
+
+
+def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; on a mesh ``F.embedding``, whose gradient DTensor
+    shards (the index's, an ``index_put`` into the table, it does not).
+    The table's model dim is gathered first (FSDP's gather): split over
+    the data axis that also splits the tokens, DTensor would gather the
+    tokens instead and mask the vocabulary shards with the ungathered
+    tokens' mask.  The rows' masked partial sums resolve at once, onto
+    the residual stream's layout: met by another operand first, they
+    make DTensor mask that operand with a mask its sharding cache kept
+    from an earlier lookup (torch 2.11)."""
+    if pspec.is_dtensor(table):
+        rows = F.embedding(tokens, pspec.shard(pspec.pin_grad(table), "tp",
+                                               None))
+        return pspec.shard(rows, "batch", "sp", None)
+    return table[tokens]
 
 
 def _embed(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
            patches, dtype: torch.dtype) -> torch.Tensor:
-    x = params.embed[tokens].to(dtype)
+    x = lookup(params.embed, tokens).to(dtype)
     if cfg.n_patches > 0 and patches is not None:
         patches = torch.as_tensor(patches, device=x.device)
         px = patches.to(dtype) @ params.patch_proj.to(dtype)
         x = torch.cat([px, x], dim=1)
-    return x
+    # pin the residual-stream layout: the vocab-sharded gather would
+    # otherwise leave x replicated (see ``pspec``)
+    return pspec.shard(x, "batch", "sp", None)
 
 
 def _unembed(params: LM, x: torch.Tensor, dtype: torch.dtype
              ) -> torch.Tensor:
+    x = pspec.shard(x, "batch", None, None)   # sequence gathered, as above
     if params.unembed is None:
-        return x @ params.embed.T.to(dtype)
-    return x @ params.unembed.to(dtype)
+        logits = x @ pspec.pin_grad(params.embed).T.to(dtype)
+    else:
+        logits = x @ params.unembed.to(dtype)
+    return pspec.shard(logits, "batch", None, "tp")
 
 
 def _layers(params: LM, dtype: torch.dtype):
@@ -413,7 +456,7 @@ def forward_with_aux(params: LM, cfg: ModelConfig, tokens,
     repeats), else run under ``torch.inference_mode``."""
     impl = impl or cfg.attention_impl
     if not records_grad(params):
-        with torch.inference_mode():
+        with unrecorded(params):
             return _forward(params, cfg, tokens, patches, impl, chunk, None)
     if params.embed.is_cuda:
         used = {"attn": impl, "mamba": cfg.ssm_impl}
@@ -512,7 +555,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for kind in cfg.layer_kinds()]
 
 
-@torch.inference_mode()
+def unrecorded(params: nn.Module):
+    """The context of a pass over ``params`` that autograd does not
+    record: ``torch.inference_mode``, or ``torch.no_grad`` for DTensor
+    parameters (a device mesh): DTensor's in-place slice writes into the
+    caches cannot run under inference mode."""
+    if pspec.is_dtensor(next(params.parameters())):
+        return torch.no_grad()
+    return torch.inference_mode()
+
+
+def _unrecorded(fn):
+    @functools.wraps(fn)
+    def wrapper(params, *args, **kwargs):
+        with unrecorded(params):
+            return fn(params, *args, **kwargs)
+    return wrapper
+
+
+@_unrecorded
 def prefill(params: LM, cfg: ModelConfig, tokens, cache: List[Dict],
             patches=None, impl: str = "chunked", chunk: int = 1024
             ) -> Tuple[torch.Tensor, List[Dict]]:
@@ -530,12 +591,13 @@ def prefill(params: LM, cfg: ModelConfig, tokens, cache: List[Dict],
     return _unembed(params, x, dtype), new_cache
 
 
-@torch.inference_mode()
+@_unrecorded
 def decode_step(params: LM, cfg: ModelConfig, token, cache: List[Dict]
                 ) -> Tuple[torch.Tensor, List[Dict]]:
     """One decode step.  token: (B, 1) -> logits (B, 1, V), caches."""
     dtype = _dtype(cfg.compute_dtype)
-    x = params.embed[_tokens(params, token)].to(dtype)
+    x = pspec.shard(lookup(params.embed, _tokens(params, token)).to(dtype),
+                    "batch", None, None)
     positions = torch.full((1, 1), _find_pos(cache), dtype=torch.long,
                            device=x.device)
     new_cache = []

@@ -22,6 +22,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import pspec
 from .config import SSMConfig
 from .layers import normal
 from ..kernels import selective_scan as _ss
@@ -73,11 +74,26 @@ def _ssm_params(params: Mapping, cfg: SSMConfig, xb: torch.Tensor):
     float32."""
     dtr = cfg.dt_rank_of(params["in_proj"].shape[0])
     n = cfg.d_state
+    # x_proj contracts the TP-sharded d_inner: resolve its partial sums
+    # here (XLA's all-reduce), or DTensor carries them into dt_proj and
+    # replicates that product over TP
     proj = _mm(xb, params["x_proj"])
+    proj = pspec.shard(proj, "batch", *[None] * (proj.dim() - 1))
     dt, Bm, Cm = proj[..., :dtr], proj[..., dtr:dtr + n], proj[..., dtr + n:]
     dt = F.softplus(_mm(dt, params["dt_proj"])
                     + params["dt_bias"].float())             # (..., di)
     return dt, Bm.float(), Cm.float()
+
+
+def _recurrence(dA: torch.Tensor, dBx: torch.Tensor, h: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = dA_t h_{t-1} + dBx_t over a chunk's steps: (every h_t stacked
+    (B, C, di, N), the last)."""
+    hs = []
+    for t in range(dA.shape[1]):
+        h = dA[:, t] * h + dBx[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
 
 
 def _scan_chunk(params: Mapping, cfg: SSMConfig, h0: torch.Tensor,
@@ -93,15 +109,33 @@ def _scan_chunk(params: Mapping, cfg: SSMConfig, h0: torch.Tensor,
     dt, Bm, Cm = _ssm_params(params, cfg, xf)
     if mask is not None:
         dt = dt * mask[None, :, None]                        # dt=0: identity
+    # pin shardings so every time step of the scan is collective-free:
+    # state and dt d_inner-sharded over TP, B/C replicated per shard
+    h0 = pspec.shard(h0, "batch", "tp", None)
+    dt = pspec.shard(dt, "batch", None, "tp")
+    Bm = pspec.shard(Bm, "batch", None, None)
+    Cm = pspec.shard(Cm, "batch", None, None)
+    xf = pspec.shard(xf, "batch", None, "tp")
     # the per-step factors for the whole chunk at once; the loop carries h
     dA = torch.exp(dt[..., None] * A)                        # (B, C, di, N)
     dBx = (dt * xf)[..., None] * Bm[:, :, None, :]
-    h = h0
-    hs = []
-    for t in range(xb.shape[1]):
-        h = dA[:, t] * h + dBx[:, t]
-        hs.append(h)
-    y = torch.einsum("bcdn,bcn->bcd", torch.stack(hs, dim=1), Cm)
+    recur = _recurrence
+    if pspec.is_dtensor(dA):
+        from torch.distributed.tensor.experimental import local_map
+        # on a mesh the pinned layouts make every step collective-free:
+        # the steps run on each rank's shards, h d_inner-sharded with N
+        # replicated at every step (the reference's per-step constraint)
+        steps = pspec.placements_of(dA, "batch", None, "tp", None)
+        state = pspec.placements_of(h0, "batch", "tp", None)
+        if not pspec.is_dtensor(h0):      # a pass without a cache: zeros
+            h0 = torch.zeros_like(dA[:, 0]).copy_(h0)
+        recur = local_map(_recurrence, out_placements=(steps, state),
+                          in_placements=(steps, steps, state),
+                          device_mesh=dA.device_mesh,
+                          redistribute_inputs=True)
+    hs, h = recur(dA, dBx, h0)
+    y = pspec.shard(torch.einsum("bcdn,bcn->bcd", hs, Cm),
+                    "batch", None, "tp")
     y = y + params["D"].float() * xf
     y = y * F.silu(z.float())
     return y, h
@@ -113,7 +147,12 @@ def mamba_block(params: Mapping, x: torch.Tensor, cfg: SSMConfig, *,
     """x: (B, S, d).  Returns (out (B, S, d), new cache or None)."""
     b, s, d = x.shape
     di = cfg.d_inner(d)
-    xr, z = (x @ params["in_proj"]).chunk(2, dim=-1)         # (B, S, di) each
+    xz = pspec.shard(x @ params["in_proj"], "batch", None, "tp")
+    xr, z = xz.chunk(2, dim=-1)                              # (B, S, di) each
+    # the split of the TP-sharded xz leaves its halves replicated under
+    # DTensor; shard them again, as XLA's propagation keeps them
+    xr = pspec.shard(xr, "batch", None, "tp")
+    z = pspec.shard(z, "batch", None, "tp")
 
     if cache is not None and s == 1:
         # --- decode step ---

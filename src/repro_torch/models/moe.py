@@ -29,6 +29,7 @@ from typing import Dict, Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import pspec
 from .config import MoEConfig
 from .layers import activation_fn, init_mlp, mlp_block, normal
 
@@ -76,7 +77,14 @@ def moe_block(params: Mapping, x: torch.Tensor, cfg: MoEConfig, *,
     tg = min(group, T)
     assert T % tg == 0, (T, tg)
     g = T // tg
-    xg = x.reshape(g, tg, d)
+    if g % pspec.axis_size("batch"):
+        # fewer groups than batch shards (decode's one group): whole rows,
+        # as the reference's guard leaves them
+        x = pspec.shard(x, None, None, None)
+    # the gradient returns to the reshape in its forward layout (DTensor's
+    # view rule cannot fold a token dim split over pod, data and model
+    # back into rows)
+    xg = pspec.pin_grad(x.reshape(g, tg, d))
 
     router = params["router"].to(xg.dtype).float()
     logits = xg.float() @ router                                  # (G,Tg,E)
@@ -109,8 +117,8 @@ def moe_block(params: Mapping, x: torch.Tensor, cfg: MoEConfig, *,
         ok = p_tok < cap
         slots.append((e_ids, p_tok, ok))
         flat = torch.where(ok, e_ids * cap + p_tok, spare)
-        table.scatter_(1, flat, tok)
-        valid.scatter_(1, flat, ok)
+        table = table.scatter(1, flat, tok)
+        valid = valid.scatter(1, flat, ok)
     table, valid = table[:, :spare], valid[:, :spare]
 
     # --- dispatch gather: (G, E, C, d) ---
@@ -118,12 +126,16 @@ def moe_block(params: Mapping, x: torch.Tensor, cfg: MoEConfig, *,
     gathered = torch.where(valid[..., None], gathered,
                            torch.zeros((), dtype=x.dtype, device=x.device))
     gathered = gathered.reshape(g, E, cap, d)
+    # expert parallelism: groups follow the batch shards, experts follow TP
+    gathered = pspec.shard(gathered, "batch", "tp", None, None)
 
     # --- expert FFNs ---
     act = activation_fn(activation)
     h = act(torch.einsum("gecd,edf->gecf", gathered, params["w_gate"])) * \
         torch.einsum("gecd,edf->gecf", gathered, params["w_up"])
-    expert_out = torch.einsum("gecf,efd->gecd", h, params["w_down"])
+    expert_out = pspec.shard(
+        torch.einsum("gecf,efd->gecd", h, params["w_down"]),
+        "batch", "tp", None, None)
 
     # --- combine: transpose gather per slot ---
     out = torch.zeros((g, tg, d), dtype=expert_out.dtype, device=x.device)
@@ -135,6 +147,10 @@ def moe_block(params: Mapping, x: torch.Tensor, cfg: MoEConfig, *,
         w = (gate_vals[..., slot] * ok.float())[..., None]
         out = out + piece * w.to(piece.dtype)
 
+    # groups back to the batch: DTensor's view rule cannot undo the split
+    # of a batch and a sequence dim sharded over two mesh dims (prefill_32k:
+    # groups over data and model), so the groups follow the data axes alone
+    out = pspec.shard(out, "batch", None, None)
     out = out.reshape(b, s, d).to(x.dtype)
     if "shared" in params:
         out = out + mlp_block(params["shared"], x, activation)

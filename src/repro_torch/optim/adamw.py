@@ -34,12 +34,12 @@ class AdamWConfig:
 def _zeros_like_tree(tree):
     """float32 zeros shaped like every tensor of a nested dict / list /
     tuple, each on its tensor's device (``meta`` stays ``meta``: no
-    storage)."""
+    storage; a DTensor's moments are DTensors with its placements)."""
     if isinstance(tree, Mapping):
         return {k: _zeros_like_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_zeros_like_tree(v) for v in tree)
-    return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
+    return torch.zeros_like(tree, dtype=torch.float32)
 
 
 def adamw_init(params: Mapping[str, Any]) -> Dict[str, Any]:

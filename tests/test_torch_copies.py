@@ -24,7 +24,10 @@ JAX reference package.
     ``optim`` run with neither ``jax`` nor ``repro`` loaded;
 (h) the training slice: ``data`` and ``runtime`` (numpy and threads only)
     are the reference's files, byte for byte, and ``launch.train`` trains
-    and resumes with neither ``jax`` nor ``repro`` loaded.
+    and resumes with neither ``jax`` nor ``repro`` loaded;
+(i) distributed launch: the port's copies of the reference's tables (the
+    sharding rules, the logical axes, the ring factors, the dtype sizes)
+    equal the reference's.
 """
 
 import ast
@@ -195,7 +198,10 @@ def test_port_files_import_no_jax_and_no_repro():
     assert {"serve", "surrogate", "optim", "launch", "ckpt", "data",
             "runtime"} <= scanned, scanned
     for name in ("models/encdec.py", "models/api.py", "models/layers.py",
-                 "launch/steps.py", "optim/adamw.py", "convert.py"):
+                 "launch/steps.py", "optim/adamw.py", "convert.py",
+                 "pspec.py", "launch/mesh.py", "launch/sharding.py",
+                 "launch/dryrun.py", "launch/roofline.py",
+                 "launch/roofline_report.py"):
         assert ROOT / "src" / "repro_torch" / name in files, name
     bad = {str(f.relative_to(ROOT)): m for f in files
            for m in _imported_modules(f) if _forbidden(m)}
@@ -548,3 +554,30 @@ def test_train_runs_without_jax_or_repro_loaded(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+# ---------------------------------------------------------------------------
+# (i) distributed launch: the copied tables
+# ---------------------------------------------------------------------------
+
+
+def test_launch_tables_equal_reference():
+    from repro import pspec as ref_pspec
+    from repro.launch import roofline as ref_roofline
+    from repro.launch import sharding as ref_sharding
+    from repro_torch import pspec as port_pspec
+    from repro_torch.launch import roofline as port_roofline
+    from repro_torch.launch import sharding as port_sharding
+    assert port_sharding._RULES == ref_sharding._RULES
+    assert port_sharding._MOE_EXPERT_RULES == ref_sharding._MOE_EXPERT_RULES
+    assert port_pspec._LOGICAL == ref_pspec._LOGICAL
+    assert port_pspec._ALLOW_UNEVEN == ref_pspec._ALLOW_UNEVEN
+    assert port_roofline._FACTOR == ref_roofline._FACTOR
+    assert port_roofline.COLLECTIVES == ref_roofline._COLL_KINDS
+    # the HLO type names the reference keys its sizes by, as torch dtypes
+    hlo = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16,
+           "f16": torch.float16, "s64": torch.int64, "s32": torch.int32,
+           "s16": torch.int16, "s8": torch.int8, "u8": torch.uint8,
+           "pred": torch.bool}
+    assert {dt: ref_roofline._DTYPE_BYTES[n] for n, dt in hlo.items()} == \
+        port_roofline._DTYPE_BYTES

@@ -1127,3 +1127,68 @@ def test_whisper_encode_on_card_matches_cpu(card, exact_f32):
         want = model.logits(cpu, {"tokens": toks, "frames": frames})
     torch.testing.assert_close(logits.cpu(), want, atol=2e-4, rtol=1e-3)
     assert FA.LAUNCHES["flash_attention"] == 0
+
+
+def test_sharded_train_step_on_card_matches_plain(card, exact_f32):
+    """The (1, 1) NCCL mesh: two ``make_train_step`` steps of olmo-1b's
+    smoke config with parameters, AdamW state and batches as DTensors
+    placed by ``param_specs`` / ``input_specs_sharding`` under
+    ``pspec.activation_mesh``, against the same steps on plain tensors from
+    the same weights: losses, gradient norms and parameters equal (every
+    placement is a replica on one rank: the same kernels on the same
+    data), but for the tied embedding: its lookup's gradient is
+    ``F.embedding``'s on a mesh and indexing's off it, which on the card
+    add a token's rows in another order, so it is held within rtol 1e-6
+    (float32 rounding: 2 of 16384 weights 1e-7 apart)."""
+    import copy
+    import socket
+    import torch.distributed as dist
+    from repro_torch import pspec
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.sharding import (distribute, distribute_params,
+                                             input_specs_sharding)
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import adamw_init
+    if dist.is_initialized():
+        pytest.skip("a process group is already open in this process")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_local_mesh(1, 1)
+        cfg = replace(get_smoke_config("olmo_1b"), compute_dtype="float32")
+        plain, _ = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                    card)
+        sharded = distribute_params(copy.deepcopy(plain), mesh)
+        rng = np.random.default_rng(1)
+        batches = []
+        for _ in range(2):
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 33)))
+            batches.append({"tokens": toks[:, :-1].to(card),
+                            "labels": toks[:, 1:].to(card)})
+        step = make_train_step(cfg)
+        p_state = adamw_init(dict(plain.named_parameters()))
+        s_state = adamw_init(dict(sharded.named_parameters()))
+        placed = input_specs_sharding(mesh, batches[0])
+        for batch in batches:
+            _, p_state, pm = step(plain, p_state, batch)
+            with pspec.activation_mesh(mesh):
+                _, s_state, sm = step(sharded, s_state, {
+                    k: distribute(v, mesh, placed[k])
+                    for k, v in batch.items()})
+            for key in ("loss", "grad_norm"):
+                got = sm[key].full_tensor() if pspec.is_dtensor(sm[key]) \
+                    else sm[key]
+                assert float(got) == float(pm[key]), key
+        for (name, p), (_, q) in zip(plain.named_parameters(),
+                                     sharded.named_parameters()):
+            if name == "embed":
+                torch.testing.assert_close(q.full_tensor(), p, rtol=1e-6,
+                                           atol=0)
+            else:
+                assert torch.equal(q.full_tensor(), p), name
+    finally:
+        dist.destroy_process_group()
