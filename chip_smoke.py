@@ -245,10 +245,40 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    every cell succeeds; per cell its seconds, per-device FLOPs, bytes,
    argument bytes, peak, collectives by kind and its ``roofline_report``
    row; the card's memory does not grow;
+16. h2o-danube3-4b and phi3-vision-4b, B2's instances at (120, 120) and
+   (96, 96), the four kernels' counters zeroed before each path and read
+   after it: the 128 / 128 and 96 / 64 instances' outputs on
+   ``PINNED_FLASH`` equal to ``PINNED_DIGESTS`` (the source's bits before
+   the template took partial boxes), what ``-Xptxas -v`` said of the new
+   instances; (a) h2o-danube3-4b at full width and depth (24 layers, d
+   3840, 32 heads over 8, head dim 120, window 4096), bf16 weights drawn
+   on the card from seed 5, B 1 x S 8192, and (b) phi3-vision-4b (32
+   layers, d 3072, 32 heads, head dim 96; 256 random patch embeddings
+   before 1792 tokens), seed 6, B 4: every attention block with
+   ``impl="flash_pallas"`` against ``chunked`` on the same input (the
+   kernel's output within ``FA.bf16_error_bound`` of its plain version,
+   the blocks within the bf16 RMS/max limits), the scoring forward
+   launching ``wgmma_120`` / ``wgmma_96`` once a layer and no other flash
+   kernel nor the plain version, its logits as near the float32 ones as
+   the chunked impl's (``BF16_PARITY``), tokens/s, one scoring forward
+   profiled; ``lm.prefill`` on the kernel impl at the scoring shape (the
+   same launches) and ``NEW_GEN`` greedy decode steps (h2o-danube3's over
+   its 4096-slot ring; no launch), the tokens against a chunked bf16
+   scoring pass over the same sequence up to near-ties
+   (``greedy_parity``), prefill ms and ms/token; (c) B2 alone at each
+   arch's layer shape, and h2o-danube3's causal only at
+   ``CAUSAL_ONLY_S`` (where the window cuts nothing): the instance
+   against the ``cuda_core`` kernel it replaced (private launcher), the
+   plain version and ``scaled_dot_product_attention`` (GQA by
+   ``enable_gqa``, the window as a boolean mask; default dispatch with the
+   backend it took, and each backend alone or why it refused), CUDA
+   events and device time, beside the bound and the exponentials' floor
+   of the pairs the mask leaves (``mask_pairs``);
 
 each phase's time and the whole script's, then one ``{"kernels": [...]}``
-line (B2's ``wgmma_dv`` instance a row of its own, with the minicpm3-4b
-path's launches), the card line again, and as the last line ``{"ok":
+line (each of B2's ``wgmma_dv``, ``wgmma_120`` and ``wgmma_96`` instances
+a row of its own, with the launches of the minicpm3-4b, h2o-danube3-4b
+and phi3-vision-4b paths), the card line again, and as the last line ``{"ok":
 true, "device": {...}}``.  It needs one card; without one it exits
 non-zero before printing any result.
 """
@@ -292,10 +322,8 @@ FP32_FLOP_PER_S = 67e12    # CUDA cores (same data sheet; an FMA counts as two)
 # SMs at 1.98 GHz)
 EXP_PER_S = 132 * 16 * 1.98e9
 BLOCK = 128            # the blocked engine's block size
-# the flash kernel's two wgmma instances, as nvcc mangles them (D 128;
-# MLA's Dq 96, Dv 64)
+# the flash kernel's wgmma instance at D 128, as nvcc mangles it
 WGMMA_128 = "flash_attention_wgmma_kernelILi128ELi128E"
-WGMMA_DV = "flash_attention_wgmma_kernelILi96ELi64E"
 
 # -- the LM path: jamba-v0.1-52b at full width, one pattern period --------
 LM_ARCH = "jamba_v01_52b"
@@ -403,6 +431,14 @@ TRAIN_CHECK_STEPS = 3
 # biases, the mamba conv bias, position tables, the VLM patch projection
 UNCOUNTED_LEAVES = ("scale", "bias", "conv_b", "enc_pos", "dec_pos",
                     "patch_proj")
+
+# -- h2o-danube3-4b and phi3-vision-4b (phase 16) -----------------------------
+# (arch, B, text tokens, seed): h2o-danube3 at S 8192, so that half the rows
+# see a full 4096-key window; phi3-vision's 256 patch positions before 1792
+# tokens, B 4
+NEW_ARCHS = (("h2o_danube3_4b", 1, 8192, 5), ("phi3_vision_4b", 4, 1792, 6))
+NEW_GEN = 16           # greedy decode steps after the scoring-shape prefill
+CAUSAL_ONLY_S = 4096   # B2 at (120, 120) where the window cuts nothing
 
 # -- distributed launch (phase 15) --------------------------------------------
 SHARD_STEPS = 3        # (a): phase 13's olmo-1b step on the (1, 1) mesh
@@ -931,19 +967,73 @@ def within(out: torch.Tensor, want: torch.Tensor, tol) -> tuple:
     return float(err.max()), bad
 
 
-def flash_bound(q, k, v, causal: bool):
+def mask_pairs(sq: int, sk: int, causal: bool, window: int = 0) -> int:
+    """The (query, key) pairs a head's mask leaves: row i keeps keys j < Sk
+    with j <= i if causal and j > i - window if window > 0 (a window needs
+    Sq == Sk, as the kernel's)."""
+    if window <= 0 or window >= sk:
+        return sq * (sq + 1) // 2 if causal else sq * sk
+    w = window
+    if causal:      # row i keeps min(i + 1, w) keys
+        return w * (w + 1) // 2 + (sq - w) * w
+    # row i keeps the keys from max(0, i - w + 1) to Sk - 1
+    cut = (sq - w) * (sq - w + 1) // 2 if sq > w else 0
+    return sq * sk - cut
+
+
+def flash_bound(q, k, v, causal: bool, window: int = 0):
     """(least ms, "operations" | "bytes") of attention on these inputs:
-    the multiply-adds the mask leaves (rows i keep i + 1 keys when causal)
-    at the peak rate of the inputs' type, or the bytes of q, k, v and o."""
+    the multiply-adds of the pairs the mask leaves (``mask_pairs``) at the
+    peak rate of the inputs' type, or the bytes of q, k, v and o."""
     bh, s, dq = q.shape
     dv = v.shape[2]
-    pairs = bh * (s * (s + 1) // 2 if causal else s * k.shape[1])
+    pairs = bh * mask_pairs(s, k.shape[1], causal, window)
     flops = 2.0 * pairs * (dq + dv)
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
                                  + bh * s * dv)
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# the inputs on which the 128 / 128 and 96 / 64 instances' outputs are
+# pinned bit for bit, (BH, BKV, S, Dq, Dv, causal, window) each: a ragged
+# causal call and a windowed GQA call per instance
+PINNED_FLASH = {"wgmma": ((8, 2, 1000, 128, 128, True, 0),
+                          (4, 2, 512, 128, 128, True, 100)),
+                "wgmma_dv": ((40, 40, 2016, 96, 64, True, 0),
+                             (4, 2, 512, 96, 64, True, 100))}
+
+
+def pinned_flash_inputs(case, dev):
+    """bf16 q, k, v of a ``PINNED_FLASH`` case from numpy's generator
+    (seed 2025), the same bits on every machine."""
+    bh, bkv, s, dq, dv = case[:5]
+    rng = np.random.default_rng(2025)
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                 .to(torch.bfloat16).to(dev)
+                 for shape in ((bh, s, dq), (bkv, s, dq), (bkv, s, dv)))
+
+
+# the SHA-256 of those outputs (``output_digest``), as the source gave them
+# on an H100 before the template took partial boxes
+# (``tools/flash_breakdown.py --against <that source> --digests``)
+PINNED_DIGESTS = {
+    ("wgmma", 0):
+        "8ca1c5c1355bdba31ced39a2c721e1db812264a853fd98fcc8182f17d5a99b89",
+    ("wgmma", 1):
+        "593f21cdbadfd1bfa3fbbee3bb65cc891207d7ccb2ce9409d10993db0fb91ce8",
+    ("wgmma_dv", 0):
+        "ab4bfa6b77ece02235ecbbc59def17d9f88efd0ece0de8136a38023f7a18c139",
+    ("wgmma_dv", 1):
+        "1fd29cf04b79e61b7a96f0abfca69f0bcac705aec7b5a72e6737c7465ba3831e"}
+
+
+def output_digest(t: torch.Tensor) -> str:
+    """SHA-256 of a bf16 tensor's bits, for pinning a kernel's output."""
+    import hashlib
+    bits = t.detach().contiguous().view(torch.int16).cpu().numpy()
+    return hashlib.sha256(bits.tobytes()).hexdigest()
 
 
 def scan_bound(x, b):
@@ -2556,19 +2646,26 @@ class FlashSpy:
         self.FA.flash_attention = self.real
 
 
-def mla_blocks(FA, params, cfg, toks, dtype, n_layers=None) -> None:
-    """Each MLA block with ``impl="flash_pallas"`` against ``chunked`` on
-    the same input (the chunked path's activations at that layer): the
-    kernel's attention output against its plain version on the same q, k,
-    v (bf16: within ``FA.bf16_error_bound``; float32: ``FLASH_F32_TOL``),
-    and the block outputs (bf16: RMS of kernel - chunked within 2^-7 of the
-    chunked output's RMS, the largest within 2^-6 of its largest, as
+def attention_blocks(FA, params, cfg, toks, dtype, n_layers=None,
+                     patches=None) -> None:
+    """Each attention block (MLA or GQA, with the config's window) with
+    ``impl="flash_pallas"`` against ``chunked`` on the same input (the
+    chunked path's activations at that layer): the kernel's attention
+    output against its plain version on the same q, k, v (bf16: within
+    ``FA.bf16_error_bound``; float32: ``FLASH_F32_TOL``), and the block
+    outputs (bf16: RMS of kernel - chunked within 2^-7 of the chunked
+    output's RMS, the largest within 2^-6 of its largest, as
     ``bf16_agreement``; float32: ``MLA_F32_TOL``).  Each block's kernel
-    call runs ``wgmma_dv`` in bf16 and ``cuda_core`` in float32."""
+    call runs the kernel ``FA.plan`` picks for the head dims and type
+    (MLA: ``wgmma_dv`` in bf16, ``cuda_core`` in float32)."""
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     rms = lambda t: float(t.float().square().mean().sqrt())  # noqa: E731
-    x = lm._embed(params, cfg, toks, None, dtype)
+    a = cfg.attention
+    block = L.mla_block if a.kind == "mla" else L.attention_block
+    dq, dv = ((a.qk_nope_head_dim + a.qk_rope_head_dim, a.v_head_dim)
+              if a.kind == "mla" else (a.head_dim, a.head_dim))
+    x = lm._embed(params, cfg, toks, patches, dtype)
     pos = torch.arange(x.shape[1], device=x.device)[None]
     worst_attn, worst_block = 0.0, 0.0
     layers = itertools.islice(lm._layers(params, dtype), n_layers)
@@ -2576,10 +2673,10 @@ def mla_blocks(FA, params, cfg, toks, dtype, n_layers=None) -> None:
     with FlashSpy(FA) as spy:
         for i, (layer, lp) in enumerate(layers):
             h = L.norm(cfg.norm, x, lp["ln1"])
-            kern = L.mla_block(lp["mix"], h, cfg.attention, positions=pos,
-                               impl="flash_pallas")[0]
-            plain = L.mla_block(lp["mix"], h, cfg.attention, positions=pos,
-                                impl="chunked")[0]
+            kern = block(lp["mix"], h, a, positions=pos,
+                         impl="flash_pallas")[0]
+            plain = block(lp["mix"], h, a, positions=pos,
+                          impl="chunked")[0]
             q, k, v, out, kw = spy.calls.pop()
             want = FA.flash_attention_torch(q, k, v, **kw)
             if dtype == torch.bfloat16:
@@ -2587,7 +2684,7 @@ def mla_blocks(FA, params, cfg, toks, dtype, n_layers=None) -> None:
                 attn = float(((out.float() - want.float()).abs()
                               / bnd).max())
                 d = kern.float() - plain.float()
-                block = max(rms(d) / rms(plain) / 2.0 ** -7,
+                agree = max(rms(d) / rms(plain) / 2.0 ** -7,
                             float(d.abs().max() / plain.float().abs().max())
                             / 2.0 ** -6)
                 del bnd, d
@@ -2595,33 +2692,33 @@ def mla_blocks(FA, params, cfg, toks, dtype, n_layers=None) -> None:
                 err, bad = within(out, want, FLASH_F32_TOL)
                 attn = float(bad)
                 err, bad = within(kern, plain, MLA_F32_TOL)
-                block = float(bad)
+                agree = float(bad)
             check(attn <= (1.0 if dtype == torch.bfloat16 else 0.0),
-                  f"MLA layer {i} ({dtype}): kernel attention vs plain at "
-                  f"{attn}")
-            check(block <= (1.0 if dtype == torch.bfloat16 else 0.0),
-                  f"MLA layer {i} ({dtype}): block kernel vs chunked at "
-                  f"{block}")
+                  f"{cfg.arch_id} layer {i} ({dtype}): kernel attention vs "
+                  f"plain at {attn}")
+            check(agree <= (1.0 if dtype == torch.bfloat16 else 0.0),
+                  f"{cfg.arch_id} layer {i} ({dtype}): block kernel vs "
+                  f"chunked at {agree}")
             worst_attn, worst_block = max(worst_attn, attn), max(worst_block,
-                                                                  block)
+                                                                  agree)
             del q, k, v, out, want, kern, plain
             x = lm._layer_apply(cfg, layer.kind, layer.is_moe, lp, x, pos,
                                 None, "chunked", 1024)[0]
     ran = {n: FA.VARIANT_LAUNCHES[n] - before[n] for n in FA.VARIANTS}
-    variant = "wgmma_dv" if dtype == torch.bfloat16 else "cuda_core"
+    variant = FA.plan(dq, dv, dtype, True)
+    what = f"{cfg.arch_id} {a.kind} blocks 0-{i}"
     check(ran == {n: (i + 1) * (n == variant) for n in FA.VARIANTS},
-          f"MLA blocks 0-{i} ({dtype}): flash launches {ran}, want "
-          f"{variant} once a block")
+          f"{what} ({dtype}): flash launches {ran}, want {variant} once a "
+          f"block")
     if dtype == torch.bfloat16:
-        print(f"MLA blocks 0-{i}, bf16, S {toks.shape[1]}: "
-              f"flash_pallas ({variant}) vs chunked on the same input; kernel "
-          f"attention "
+        print(f"{what}, bf16, B {x.shape[0]} x S {x.shape[1]}: flash_pallas "
+              f"({variant}) vs chunked on the same input; kernel attention "
               f"vs plain at most {worst_attn:.3f} of FA.bf16_error_bound, "
               f"block outputs at most {worst_block:.3f} of the RMS/max "
               f"limits", flush=True)
     else:
-        print(f"MLA blocks 0-{i}, float32 ({variant}): kernel attention "
-              f"within {FLASH_F32_TOL} of plain, block outputs within "
+        print(f"{what}, float32 ({variant}): kernel attention within "
+              f"{FLASH_F32_TOL} of plain, block outputs within "
               f"{MLA_F32_TOL} of chunked, in every layer", flush=True)
 
 
@@ -2700,9 +2797,9 @@ def minicpm3_phase(FA, dev) -> int:
 
     # per block, bf16 at full depth, then float32 on layers 0-3
     with torch.no_grad():
-        mla_blocks(FA, params, cfg, toks, torch.bfloat16)
-        mla_blocks(FA, params, replace(cfg, compute_dtype="float32"), toks,
-                   torch.float32, MLA_F32_LAYERS)
+        attention_blocks(FA, params, cfg, toks, torch.bfloat16)
+        attention_blocks(FA, params, replace(cfg, compute_dtype="float32"),
+                         toks, torch.float32, MLA_F32_LAYERS)
 
     # the scoring forward and the prefill on the kernel impl
     FA.reset_counts()
@@ -2887,106 +2984,25 @@ def sdpa_attempt(fn):
             return "refused: " + ("; ".join(why) or str(e).splitlines()[0])
 
 
-def exp_floor(q, k, causal: bool) -> float:
+def exp_floor(q, k, causal: bool, window: int = 0) -> float:
     """Least ms of the softmax's exponentials on these inputs: one per
-    score the mask leaves, at the special-function units' rate."""
+    score the mask leaves (``mask_pairs``), at the special-function units'
+    rate."""
     bh, s = q.shape[:2]
-    exps = bh * (s * (s + 1) // 2 if causal else s * k.shape[1])
+    exps = bh * mask_pairs(s, k.shape[1], causal, window)
     return exps / EXP_PER_S * 1e3
 
 
 def mla_flash_timing(FA, dev) -> dict:
-    """14 (c): B2 at MLA's prefill shape, bf16, causal: the ``wgmma_dv``
-    kernel (held within ``FA.bf16_error_bound`` of its plain version),
-    the ``cuda_core`` kernel it replaced on this path (private launcher,
-    held the same way), the plain version and
-    ``scaled_dot_product_attention`` (default dispatch, then each backend
-    alone), CUDA events and device time (CUDA-graph replay), beside the
-    FLOP bound and the exponentials' floor; what ``-Xptxas -v`` said of
-    the kernel."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    """14 (c): B2 at MLA's prefill shape (40 heads, S ``MLA_S``, Dq 96,
+    Dv 64), bf16, causal, on the ``wgmma_dv`` instance (``b2_at_shape``),
+    with what ``-Xptxas -v`` said of it."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
     a = get_config(MLA_ARCH).attention
-    h, dq, dv = a.n_heads, a.qk_nope_head_dim + a.qk_rope_head_dim, \
-        a.v_head_dim
-    gen = torch.Generator(device=dev).manual_seed(7)
-    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
-        torch.bfloat16) for shape in ((h, MLA_S, dq), (h, MLA_S, dq),
-                                      (h, MLA_S, dv)))
-    log = _build.library_path(FA.SOURCE).with_suffix(".log").read_text()
-    lib = _build.load(FA.SOURCE, FA._bind)
-    print(f"flash_attention_wgmma_kernel (Dq {dq}, Dv {dv}), nvcc -Xptxas "
-          f"-v: {ptxas_summary(log, WGMMA_DV)}; dynamic shared memory "
-          f"{lib.flash_attention_wgmma_dv_smem_bytes()} B, "
-          f"{lib.flash_attention_wgmma_dv_stages()} k/v stages", flush=True)
-    want = FA.flash_attention_torch(q, k, v, causal=True)
-    bnd = FA.bf16_error_bound(q, k, v, causal=True)
-
-    def held(out, what):
-        diff = (out.float() - want.float()).abs()
-        worst = float((diff / bnd).max())
-        check(worst <= 1.0, f"B2 at MLA's shape, {what}: {worst} of the "
-                            f"bf16 bound")
-        return float(diff.max()), worst
-
-    before = dict(FA.VARIANT_LAUNCHES)
-    err, worst = held(FA.flash_attention(q, k, v, causal=True), "wgmma_dv")
-    ran = [n for n in FA.VARIANTS if FA.VARIANT_LAUNCHES[n] != before[n]]
-    check(ran == ["wgmma_dv"], f"B2 at MLA's shape ran {ran}")
-    old = lambda: FA._launch(q, k, v, True, 0, None,  # noqa: E731
-                             "cuda_core")
-    _, old_worst = held(old(), "cuda_core")
-    del want, bnd
-    kernel = lambda: FA.flash_attention(q, k, v, causal=True)  # noqa: E731
-    plain = lambda: FA.flash_attention_torch(q, k, v,  # noqa: E731
-                                             causal=True)
-    ms, dev_ms = cuda_ms(kernel, 20), graph_ms([kernel], 20)
-    old_ms, old_dev_ms = cuda_ms(old, 10), graph_ms([old], 10)
-    ms2 = cuda_ms(kernel, 20)
-    plain_ms, plain_dev_ms = cuda_ms(plain, 3), graph_ms([plain], 3)
-    q4, k4, v4 = (t[None] for t in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q4, k4, v4, is_causal=True)
-    backends = {}
-    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
-                 "MATH"):
-        if not hasattr(SDPBackend, name):
-            backends[name] = "not in this PyTorch"
-            continue
-        with sdpa_kernel([getattr(SDPBackend, name)]):
-            backends[name] = sdpa_attempt(lambda: f"{cuda_ms(sdpa, 5):.4f} ms")
-    lib_ms = lib_dev_ms = None
-    refusal = sdpa_attempt(lambda: None)
-    if refusal is None:
-        lib_ms, lib_dev_ms = cuda_ms(sdpa, 20), graph_ms([sdpa], 20)
-    else:
-        backends["default"] = refusal
-    bms, by = flash_bound(q, k, v, causal=True)
-    floor = exp_floor(q, k, causal=True)
-    lib_txt = ("refused" if lib_ms is None else
-               f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f}; kernel / SDPA "
-               f"{ms / lib_ms:.2f})")
-    print(f"flash_attention at MLA's prefill shape (BH {h}, S {MLA_S}, Dq "
-          f"{dq}, Dv {dv}, bf16, causal) [wgmma_dv]: kernel {ms:.4f} ms, "
-          f"again {ms2:.4f} (device {dev_ms:.4f}; {100 * bms / ms:.1f}% of "
-          f"bound {bms:.4f} ms, {by}; exponentials' floor {floor:.4f} ms); "
-          f"cuda_core kernel {old_ms:.4f} ms (device {old_dev_ms:.4f}; "
-          f"{old_ms / ms:.2f}x the wgmma_dv kernel's time; {old_worst:.3f} "
-          f"of the bf16 bound); plain {plain_ms:.3f} ms (device "
-          f"{plain_dev_ms:.3f}); scaled_dot_product_attention default "
-          f"{lib_txt}; by backend {backends}; max |kernel - plain| "
-          f"{err:.3e} ({worst:.3f} of the bf16 bound)", flush=True)
-    return dict(label="MLA prefill shape", shape=[h, MLA_S, dq, dv, h],
-                variant="wgmma_dv", ms=ms, device_ms=dev_ms,
-                old_kernel_ms=old_ms, old_kernel_device_ms=old_dev_ms,
-                plain_ms=plain_ms, plain_device_ms=plain_dev_ms,
-                library_ms=lib_ms, library_device_ms=lib_dev_ms,
-                sdpa_backends=backends, bound_ms=bms, bound_by=by,
-                exp_floor_ms=floor, max_abs_err=err, err_over_bound=worst,
-                source="src/repro_torch/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:32")
+    dq, dv = a.qk_nope_head_dim + a.qk_rope_head_dim, a.v_head_dim
+    print(instance_build_line(FA, dq, dv), flush=True)
+    return b2_at_shape(FA, dev, "at MLA's prefill shape", 1, a.n_heads,
+                       a.n_heads, MLA_S, dq, dv, 0, 7)
 
 
 def leaf_items(tree, prefix=()):
@@ -3386,6 +3402,344 @@ def sharded_phase(modules, dev) -> None:
     check(sum(ran.values()) == 0, f"kernels ran in phase 15: {ran}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: h2o-danube3-4b and phi3-vision-4b -- B2's instances at (120,
+# 120) and (96, 96) on a served path at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def sdpa_backend(q4, k4, v4, **kw) -> str:
+    """The backend PyTorch's default dispatch of
+    ``scaled_dot_product_attention`` picks for these inputs, or why it
+    cannot say."""
+    from torch.nn.attention import SDPBackend
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q4, k4, v4, **kw)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"not known ({type(e).__name__})"
+
+
+def sdpa_call(q, k, v, b: int, window: int):
+    """``scaled_dot_product_attention`` on (B, H, S, D) views of the
+    kernel's (B * H, S, D) inputs, causal, GQA by ``enable_gqa``, the
+    window as an explicit boolean mask: (the call, its keyword
+    arguments)."""
+    import torch.nn.functional as F
+    s = q.shape[1]
+    q4, k4, v4 = (t.view(b, t.shape[0] // b, s, t.shape[2])
+                  for t in (q, k, v))
+    kw = dict(enable_gqa=True) if k.shape[0] != q.shape[0] else {}
+    if window:
+        i = torch.arange(s, device=q.device)
+        kw["attn_mask"] = (i[None] <= i[:, None]) & (i[None] > i[:, None]
+                                                     - window)
+    else:
+        kw["is_causal"] = True
+    return (lambda: F.scaled_dot_product_attention(q4, k4, v4, **kw)), (
+        (q4, k4, v4), kw)
+
+
+def b2_at_shape(FA, dev, label: str, b: int, h: int, kv: int, s: int,
+                dq: int, dv: int, window: int, seed: int) -> dict:
+    """B2 alone at one layer's shape, bf16, causal (and ``window``): the
+    wgmma instance ``FA.plan`` picks (held within ``FA.bf16_error_bound``
+    of the plain version, one launch of it), the ``cuda_core`` kernel it
+    replaced there (private launcher, held the same way), the plain
+    version and ``scaled_dot_product_attention`` (``sdpa_call``) by
+    default dispatch (the backend it took named) and each backend alone
+    or why it refused; CUDA events and device time (CUDA-graph replay),
+    beside the FLOP bound and the exponentials' floor of the pairs the
+    mask leaves."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    variant = FA.WGMMA_INSTANCES[(dq, dv)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16) for shape in ((b * h, s, dq), (b * kv, s, dq),
+                                      (b * kv, s, dv)))
+    want = FA.flash_attention_torch(q, k, v, causal=True, window=window)
+    bnd = FA.bf16_error_bound(q, k, v, causal=True, window=window)
+
+    def held(out, what):
+        diff = (out.float() - want.float()).abs()
+        worst = float((diff / bnd).max())
+        check(worst <= 1.0, f"B2 {label}, {what}: {worst} of the bf16 bound")
+        return float(diff.max()), worst
+
+    before = dict(FA.VARIANT_LAUNCHES)
+    kernel = lambda: FA.flash_attention(  # noqa: E731
+        q, k, v, causal=True, window=window)
+    err, worst = held(kernel(), variant)
+    ran = {n: FA.VARIANT_LAUNCHES[n] - before[n] for n in FA.VARIANTS}
+    check(ran == {n: int(n == variant) for n in FA.VARIANTS},
+          f"B2 {label} ran {ran}, not {variant} once")
+    old = lambda: FA._launch(q, k, v, True, window, None,  # noqa: E731
+                             "cuda_core")
+    _, old_worst = held(old(), "cuda_core")
+    del want, bnd
+    plain = lambda: FA.flash_attention_torch(  # noqa: E731
+        q, k, v, causal=True, window=window)
+    ms, dev_ms = cuda_ms(kernel, 20), graph_ms([kernel], 20)
+    old_ms, old_dev_ms = cuda_ms(old, 3), graph_ms([old], 3)
+    ms2 = cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(plain, 2)
+    sdpa, (views, kw) = sdpa_call(q, k, v, b, window)
+    backends = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        if not hasattr(SDPBackend, name):
+            backends[name] = "not in this PyTorch"
+            continue
+        with sdpa_kernel([getattr(SDPBackend, name)]):
+            backends[name] = sdpa_attempt(
+                lambda: f"{cuda_ms(sdpa, 3 if name == 'MATH' else 10):.4f} "
+                        f"ms")
+    lib_ms = lib_dev_ms = None
+    chosen = sdpa_backend(*views, **kw)
+    def default_dispatch() -> None:
+        sdpa()
+
+    refusal = sdpa_attempt(default_dispatch)
+    if refusal is None:
+        lib_ms, lib_dev_ms = cuda_ms(sdpa, 10), graph_ms([sdpa], 10)
+    else:
+        backends["default"] = refusal
+    bms, by = flash_bound(q, k, v, causal=True, window=window)
+    floor = exp_floor(q, k, causal=True, window=window)
+    lib_txt = ("refused" if lib_ms is None else
+               f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f}; {chosen}; kernel "
+               f"/ SDPA {ms / lib_ms:.2f})")
+    print(f"flash_attention {label} (B {b} x {h} heads over {kv} KV heads, S "
+          f"{s}, Dq {dq}, Dv {dv}, bf16, causal, window {window}) "
+          f"[{variant}]: kernel {ms:.4f} ms, again {ms2:.4f} (device "
+          f"{dev_ms:.4f}; {100 * bms / ms:.1f}% of bound {bms:.4f} ms, {by}, "
+          f"{mask_pairs(s, s, True, window)} pairs a head; exponentials' "
+          f"floor {floor:.4f} ms); cuda_core kernel {old_ms:.4f} ms (device "
+          f"{old_dev_ms:.4f}; {old_ms / ms:.2f}x the {variant} kernel's "
+          f"time; {old_worst:.3f} of the bf16 bound); plain {plain_ms:.3f} "
+          f"ms; scaled_dot_product_attention default {lib_txt}; by backend "
+          f"{backends}; max |kernel - plain| {err:.3e} ({worst:.3f} of the "
+          f"bf16 bound)", flush=True)
+    return dict(label=label, shape=[b * h, s, dq, dv, b * kv, window],
+                variant=variant, ms=ms, device_ms=dev_ms,
+                old_kernel_ms=old_ms, old_kernel_device_ms=old_dev_ms,
+                plain_ms=plain_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev_ms, sdpa_backends=backends,
+                sdpa_default_backend=chosen, bound_ms=bms, bound_by=by,
+                exp_floor_ms=floor, max_abs_err=err, err_over_bound=worst,
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:32")
+
+
+def instance_build_line(FA, dq: int, dv: int) -> str:
+    """What ``-Xptxas -v`` said of the wgmma instance at (dq, dv), with
+    its shared memory and ring depth."""
+    from repro_torch.kernels import _build
+    log = _build.library_path(FA.SOURCE).with_suffix(".log").read_text()
+    lib = _build.load(FA.SOURCE, FA._bind)
+    variant = FA.WGMMA_INSTANCES[(dq, dv)]
+    mangled = f"flash_attention_wgmma_kernelILi{dq}ELi{dv}E"
+    return (f"{mangled}, nvcc -Xptxas -v: {ptxas_summary(log, mangled)}; "
+            f"dynamic shared memory "
+            f"{getattr(lib, f'flash_attention_{variant}_smem_bytes')()} B, "
+            f"{getattr(lib, f'flash_attention_{variant}_stages')()} k/v "
+            f"stages")
+
+
+def scoring_chunk(total: int) -> int:
+    """The chunked attention's chunk for a scoring pass over ``total``
+    positions: the fewest chunks of at most ~1024 keys that divide it."""
+    n = -(-total // 1024)
+    while total % n:
+        n += 1
+    return total // n
+
+
+@torch.no_grad()
+def served_arch(FA, dev, arch: str, b: int, s_text: int, seed: int) -> tuple:
+    """16 (a) or (b): one arch at full width and depth, bf16 weights drawn
+    on the card from ``seed``, B ``b`` x ``s_text`` tokens (and the
+    config's patch positions before them, random embeddings): each
+    attention block on its wgmma instance against ``chunked`` on the same
+    input (``attention_blocks``); the scoring forward on the kernel impl
+    launching the instance once a layer and nothing else, its logits as
+    near the float32 logits as the chunked impl's (``BF16_PARITY``); a
+    prefill of the scoring shape (kernel impl, the same launches) and
+    ``NEW_GEN`` greedy decode steps over the cache (a ring of the window
+    where the config has one; no launch), the tokens against a chunked
+    bf16 scoring pass over the same sequence (``greedy_parity``); one
+    scoring forward under ``torch.profiler`` (device time by kernel).
+    Returns (the instance, its launches on the path: scoring + prefill)."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models import lm
+    rms = lambda t: float(t.float().square().mean().sqrt())  # noqa: E731
+    base = get_config(arch)
+    a = base.attention
+    cfg = replace(base, param_dtype="bfloat16")
+    kern_cfg = replace(cfg, attention_impl="flash_pallas")
+    cfg32 = replace(base, compute_dtype="float32")
+    model = get_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = model.init_params(seed, device=dev)
+    params.requires_grad_(False)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    toks = torch.randint(0, base.vocab_size, (b, s_text), generator=gen,
+                         device=dev)
+    patches = (torch.randn((b, base.n_patches, base.d_model), generator=gen,
+                           device=dev) if base.n_patches else None)
+    s = s_text + base.n_patches
+    variant = FA.plan(a.head_dim, a.head_dim, torch.bfloat16, True)
+    print(f"{arch} at full width and depth: {base.n_layers} layers, d "
+          f"{base.d_model}, {a.n_heads} heads over {a.n_kv_heads} KV heads, "
+          f"head dim {a.head_dim}, window {a.window}, {base.n_patches} patch "
+          f"positions, {n / 1e9:.3f} G parameters, bf16, from seed {seed} on "
+          f"the card in {time.perf_counter() - t:.1f} s; B {b} x S {s}; "
+          f"flash plan: {variant}", flush=True)
+    check(variant != "cuda_core", f"{arch}'s flash plan is {variant}")
+    attention_blocks(FA, params, cfg, toks, torch.bfloat16, patches=patches)
+
+    want = dict({v: base.n_layers * (v == variant) for v in FA.VARIANTS},
+                plain=0)
+    counts = lambda: dict(FA.VARIANT_LAUNCHES,  # noqa: E731
+                          plain=FA.PLAIN_CALLS["flash_attention"])
+    secs = []
+    for _ in range(2):         # the first pass warms up
+        FA.reset_counts()
+        t = time.perf_counter()
+        kern = lm.forward(params, kern_cfg, toks, patches)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        score = counts()
+        check(score == want, f"{arch} scoring: launches {score}, want {want}")
+    profile_call(lambda: lm.forward(params, kern_cfg, toks, patches),
+                 f"{arch} scoring forward", cpu=False,
+                 watch=("flash_attention_wgmma", CUBLAS_NAMES))
+    t = time.perf_counter()
+    plain = lm.forward(params, cfg, toks, patches)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    params32 = copy.deepcopy(params).float()
+    f32 = lm.forward(params32, cfg32, toks, patches).float()
+    check(bool(torch.isfinite(kern).all()) and kern.shape == (
+        b, s, base.vocab_size), f"{arch} scoring logits {kern.shape}")
+    err_k, err_p = rms(kern.float() - f32), rms(plain.float() - f32)
+    print(f"{arch} scoring B {b} x S {s}: kernel impl {secs[-1]:.3f} s "
+          f"({b * s / secs[-1]:.0f} tokens/s; first pass {secs[0]:.3f} s), "
+          f"chunked {plain_s:.3f} s; launches {score}; RMS distance from "
+          f"the float32 logits: kernel impl {err_k:.4e}, chunked "
+          f"{err_p:.4e} (ratio {err_k / err_p:.4f}, limit {BF16_PARITY})",
+          flush=True)
+    check(err_k <= BF16_PARITY * err_p,
+          f"{arch} bf16 kernel logits {err_k:.4e} from float32, more than "
+          f"{BF16_PARITY} x the chunked impl's {err_p:.4e}")
+    del kern, plain, f32
+
+    FA.reset_counts()
+    total = s + NEW_GEN
+    cache = model.init_cache(b, total, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lg, cache = lm.prefill(params, cfg, toks, cache, patches=patches,
+                           impl="flash_pallas")
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    pre = counts()
+    check(pre == want, f"{arch} prefill: launches {pre}, want {want}")
+    outs, tok = [lg[:, -1]], lg[:, -1].argmax(-1)[:, None]
+    gen_toks = [tok]
+    t = time.perf_counter()
+    for _ in range(NEW_GEN):
+        lg, cache = model.decode_step(params, tok, cache)
+        tok = lg[:, -1].argmax(-1)[:, None]
+        outs.append(lg[:, -1])
+        gen_toks.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    check(counts() == pre, f"{arch} decode launched: {counts()}")
+    slots = cache[0]["k"].shape[1]
+    del cache
+    seq = torch.cat([toks] + gen_toks[:-1], dim=1)
+    chunk = scoring_chunk(total)
+    scored = lm.forward(params, cfg, seq, patches, chunk=chunk)[:, s - 1:]
+    f32 = lm.forward(params32, cfg32, seq, patches, chunk=chunk)[:, s - 1:]
+    parity = greedy_parity(torch.stack(outs, 1).flatten(0, 1),
+                           scored.flatten(0, 1), f32.flatten(0, 1))
+    print(f"{arch} generation: prefill B {b} x {s} (flash_pallas) "
+          f"{1e3 * prefill_s:.1f} ms, {NEW_GEN} greedy decode steps over a "
+          f"cache of {slots} slots {1e3 * decode_s / NEW_GEN:.2f} ms/token "
+          f"({b * NEW_GEN / decode_s:.1f} tokens/s); launches {pre}; the "
+          f"check's scoring pass over {total} positions in chunks of "
+          f"{chunk}; {parity}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del params, params32, scored, f32, outs
+    return variant, score[variant] + pre[variant]
+
+
+def new_dims_phase(modules, dev) -> tuple:
+    """Phase 16: the pinned bits of the 128 / 128 and 96 / 64 instances;
+    (a) h2o-danube3-4b and (b) phi3-vision-4b served at full width and
+    depth (``served_arch``); (c) B2 alone at each arch's layer shape
+    (``b2_at_shape``), h2o-danube3's also causal only at
+    ``CAUSAL_ONLY_S``, where the window cuts nothing.  Returns ({row name:
+    kernels-line row}, {row name: launches on the served paths}); the
+    counters are zeroed before each path and read after it."""
+    from repro_torch.configs import get_config
+    FA = modules[1]
+    for mod in modules:
+        mod.reset_counts()
+    lap = lap_clock()
+    for variant, cases in PINNED_FLASH.items():
+        for i, case in enumerate(cases):
+            q, k, v = pinned_flash_inputs(case, dev)
+            out = FA.flash_attention(q, k, v, causal=case[5],
+                                     window=case[6])
+            check(output_digest(out) == PINNED_DIGESTS[(variant, i)],
+                  f"the {variant} instance's output on {case} is not the "
+                  f"earlier source's")
+    print(f"the wgmma (128 / 128) and wgmma_dv (96 / 64) instances give the "
+          f"pinned bits on {sum(map(len, PINNED_FLASH.values()))} cases",
+          flush=True)
+    for d in (120, 96):
+        print(instance_build_line(FA, d, d), flush=True)
+    lap("pinned bits, build")
+    launches = {}
+    for part, (arch, b, s_text, seed) in zip("ab", NEW_ARCHS):
+        FA.reset_counts()
+        variant, n = served_arch(FA, dev, arch, b, s_text, seed)
+        launches[f"flash_attention_{variant}"] = n
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(f"({part}) {arch}")
+    rows = {}
+    for arch, b, s_text, seed in NEW_ARCHS:
+        base = get_config(arch)
+        a = base.attention
+        s = s_text + base.n_patches
+        case = b2_at_shape(FA, dev, f"at {arch}'s layer shape", b,
+                           a.n_heads, a.n_kv_heads, s, a.head_dim,
+                           a.head_dim, a.window, seed)
+        cases = [case]
+        if a.window:
+            cases.append(b2_at_shape(
+                FA, dev, f"at {arch}'s heads, causal only", b, a.n_heads,
+                a.n_kv_heads, CAUSAL_ONLY_S, a.head_dim, a.head_dim, 0,
+                seed))
+        rows[f"flash_attention_{case['variant']}"] = dict(case, cases=cases)
+        torch.cuda.empty_cache()
+    lap("(c) B2 at the layer shapes")
+    others = {f"{kind}{k}": v for mod in modules if mod is not FA
+              for kind, d in (("", mod.LAUNCHES), ("plain ", mod.PLAIN_CALLS))
+              for k, v in d.items()}
+    check(sum(others.values()) == 0, f"other kernels ran in phase 16: "
+                                     f"{others}")
+    return rows, launches
+
+
 # what a kernel's row may carry beside the contract's keys (the chosen
 # kernel of the GEMM, flash attention and the scan, the scan's plan, device
 # times, the mma.sync kernels', the cuda_core kernel's (at MLA's heads) and
@@ -3397,7 +3751,7 @@ EXTRA_KEYS = ("variant", "plan", "launch_ms", "device_ms",
               "library_device_ms", "old_kernel_ms", "old_kernel_device_ms",
               "pr12_ms", "pr12_device_ms", "cases", "full_mode_ms",
               "dense_bound_ms", "old_path_ms", "exp_floor_ms",
-              "sdpa_backends")
+              "sdpa_backends", "sdpa_default_backend")
 
 
 def main() -> int:
@@ -3602,6 +3956,14 @@ def main() -> int:
     # -- 15. distributed launch ----------------------------------------------
     sharded_phase((K, FA, SS, SG), dev)
     phase_done("15 (distributed launch)")
+
+    # -- 16. h2o-danube3-4b and phi3-vision-4b: B2 at (120, 120), (96, 96) --
+    new_rows, new_launches = new_dims_phase((K, FA, SS, SG), dev)
+    rows.update(new_rows)
+    launches.update(new_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("16 (h2o-danube3-4b, phi3-vision-4b)")
     print(f"-- the whole script took {time.perf_counter() - start:.1f} s",
           flush=True)
 

@@ -23,9 +23,10 @@
 // one write of o, so it is bound by arithmetic at these shapes: the tensor
 // cores in bfloat16, the CUDA cores in float32.
 //
-// What the design does about it: three kernels, each with its own entry
-// point; the host's plan (kernels/flash_attention.py) picks by type, head
-// dims and alignment alone:
+// What the design does about it: a TMA + wgmma kernel template at four
+// head-dim pairs, a CUDA-core kernel and the earlier mma.sync kernel, each
+// with its own entry point; the host's plan (kernels/flash_attention.py)
+// picks by type, head dims and alignment alone:
 //
 //   * wgmma -- bfloat16, Dq == Dv == 128, 16-byte-aligned q, k, v, o (the
 //     LM path): TMA + wgmma, warp-specialised (see
@@ -33,6 +34,9 @@
 //   * wgmma_dv -- the same kernel at Dq != Dv: bfloat16, (Dq, Dv) = (96,
 //     64), MLA's heads (minicpm3-4b's prefill and scoring), 16-byte
 //     aligned; its own entry point.
+//   * wgmma_120, wgmma_96 -- the same kernel at (Dq, Dv) = (120, 120)
+//     (h2o-danube3-4b: GQA 32 / 8 with a 4096-key window) and (96, 96)
+//     (phi3-vision-4b), bfloat16, 16-byte aligned; an entry point each.
 //   * cuda_core -- everything else (float32, other head dims, unaligned
 //     bfloat16): one thread block per (head, 64-row query tile),
 //     heavy (late) causal tiles launched first.  Each of the 256 threads
@@ -474,8 +478,9 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, 16-byte aligned, (Dq, Dv) = (128, 128) (the LM path) or (96, 64)
-// (MLA): TMA + wgmma, warp-specialised
+// bf16, 16-byte aligned, (Dq, Dv) = (128, 128) (the LM path), (96, 64)
+// (MLA), (120, 120) (h2o-danube3) or (96, 96) (phi3-vision): TMA + wgmma,
+// warp-specialised
 // ---------------------------------------------------------------------------
 //
 // A persistent grid of at most one 384-thread block per SM walks the work
@@ -516,6 +521,19 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
 // box a tile; P v is m64n64k16, the accumulator 32 registers a thread.  The
 // 16 KB v tiles leave room for a ring of 3 stages (2 at 128 / 128).
 //
+// Widths that are not whole boxes ((120, 120), (96, 96)): every tile of q,
+// k and v is ceil(D / 64) boxes, TMA zero-filling the columns past D (the
+// maps are D wide; the barriers count the filled bytes).  q k^T issues
+// ceil(Dq / 16) k steps -- at 120 the eighth multiplies columns 112-127,
+// whose last 8 are zero in q and in k, so it adds exact zeros.  P v is
+// issued at n = Dv, m64n120k16 and m64n96k16, ending inside the second
+// 64-column atom of the swizzled v tile: on an H100 that gives what P v
+// at the boxes' width (m64n128k16 over the zero-filled columns) gives, and
+// is 2% (120) and 10% (96) faster (tools/flash_breakdown.py, pv_boxes).
+// The epilogue stages o's Dv columns in the q buffer's boxes, and the o
+// store, through a map Dv wide, clips the rest of the last box: nothing
+// past Dv is written.  The ring is 2 stages deep at both, as at 128 / 128.
+//
 // Measured and rejected on an H100 (PERF.md): issuing the next tile's
 // q k^T with this tile's P v and running the softmax under them (no
 // faster, and S, P and o then need registers at once); one block per item
@@ -530,15 +548,17 @@ constexpr int BOX_BYTES = 128 * 128;       // 128 rows x 128 bytes
 constexpr int SMEM_MAX = 232448;           // a block's shared memory, sm_90
 
 // the shared-memory plan of the instance with head dims DQ (q, k) and DV
-// (v, o): q and k tiles of ceil(DQ / 64) boxes, v tiles of DV / 64; two q
-// tiles, then a ring of k and v tiles as deep as fits, then the barriers
+// (v, o): q and k tiles of ceil(DQ / 64) boxes, v tiles of ceil(DV / 64);
+// two q tiles, then a ring of k and v tiles as deep as fits, then the
+// barriers.  QK_STEPS: q k^T's 16-deep k steps
 template <int DQ, int DV>
 struct Cfg {
-  static_assert(DQ % 16 == 0 && DV % BOX_COLS == 0 && DV <= DQ,
-                "q k^T takes 16-deep k steps; o is staged in whole boxes "
-                "of the q buffer");
+  static_assert(DQ % 8 == 0 && DV % 8 == 0 && DV <= DQ,
+                "rows of whole 16-byte units (TMA); o is staged in the "
+                "q buffer's boxes");
   static constexpr int QK_BOXES = (DQ + BOX_COLS - 1) / BOX_COLS;
-  static constexpr int V_BOXES = DV / BOX_COLS;
+  static constexpr int V_BOXES = (DV + BOX_COLS - 1) / BOX_COLS;
+  static constexpr int QK_STEPS = (DQ + 15) / 16;
   static constexpr int QK_TILE = QK_BOXES * BOX_BYTES;
   static constexpr int V_TILE = V_BOXES * BOX_BYTES;
   static constexpr int STAGES =
@@ -650,10 +670,10 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[8][4],
       p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
-// S = q k^T (64 x 128 keys): STEPS = Dq / 16 k steps, both operands
+// S = q k^T (64 x 128 keys): STEPS = ceil(Dq / 16) k steps, both operands
 // K-major; a step is 32 bytes along the swizzled rows of box kk / 4 (16 KB
 // apart).  At Dq 96 the last box's columns 96-127 are TMA's zero fill and
-// are not multiplied.
+// are not multiplied; at Dq 120 columns 120-127 are, by zeros.
 template <int STEPS>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q,
                                          uint32_t k) {
@@ -673,8 +693,8 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q,
 
 // o += P v: v's tile is (keys, Dv), N-major, read through the transpose
 // bit; k step kk is 16 key rows, 2048 bytes down each 64-column box (Dv
-// 128: two boxes BOX_BYTES apart, the leading offset; Dv 64: one box, the
-// m64n64k16 product)
+// 128, 120, 96: two boxes BOX_BYTES apart, the leading offset, m64n{Dv}k16;
+// Dv 64: one box, m64n64k16)
 template <int N>
 __device__ __forceinline__ void issue_pv(float (&o)[N],
                                          const uint32_t (&p)[8][4],
@@ -690,7 +710,11 @@ __device__ __forceinline__ void issue_pv(float (&o)[N],
 // work item w of the persistent grid: query tile qtile of head bh, the
 // heaviest (latest) causal tiles first, heads fastest, so the items in
 // flight share key/value heads in the L2; and the key tiles its rows see
-// (tiles wholly outside the mask are skipped, as in the kernels above)
+// (tiles wholly outside the mask are skipped, as in the kernels above:
+// under a window, those wholly before row r0's first key r0 - window + 1).
+// With a window the order is still heaviest first: every query tile past
+// the window's reach walks about window / 128 + 1 key tiles, earlier ones
+// fewer.
 struct Item {
   int bh, kvh, r0, first, ntiles;   // tile i's first key: first + i * BK
   __device__ __forceinline__ Item(int w, int bh_count, int group, int Sq,
@@ -825,7 +849,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_wait(q_full(n % 2), (n / 2) & 1);
     mbar_wait(k_full(g % STAGES), (g / STAGES) & 1);
     my_turn();
-    issue_qk<DQ / 16>(s_acc, qa, ks(g % STAGES));
+    issue_qk<C::QK_STEPS>(s_acc, qa, ks(g % STAGES));
     your_turn();
     wgmma_wait<0>();
     fence_regs(s_acc);
@@ -850,7 +874,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<0>();
       fence_regs(o);
       if (lane == 0) mbar_arrive(v_empty(sp));
-      issue_qk<DQ / 16>(s_acc, qa, ks(s));
+      issue_qk<C::QK_STEPS>(s_acc, qa, ks(s));
       your_turn();
       wgmma_wait<0>();
       fence_regs(s_acc);
@@ -875,7 +899,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     // epilogue: o / l cast to bf16 into this warpgroup's rows of the item's
     // q buffer (its q k^T are done; 128-byte swizzle: 16-byte chunk j % 8
     // of row r sits at chunk (j % 8) ^ (r % 8)), then one TMA store a
-    // 64-column box, clipped at Sq, that drains under the next item
+    // 64-column box, clipped at Sq and at Dv, that drains under the next
+    // item
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = rw + 8 * h;
@@ -1037,6 +1062,43 @@ int flash_attention_wgmma_dv_smem_bytes(void) {
   return wgf::Cfg<96, 64>::SMEM_BYTES;
 }
 int flash_attention_wgmma_dv_stages(void) { return wgf::Cfg<96, 64>::STAGES; }
+
+// wgmma_120, bfloat16: (Dq, Dv) = (120, 120), q, k, v, o 16-byte aligned
+// (h2o-danube3-4b's heads).
+int flash_attention_bf16_wgmma_120(const void* q, const void* k,
+                                   const void* v, void* o, int bh, int group,
+                                   int Sq, int Sk, int Dq, int Dv, int causal,
+                                   int window, float scale, void* stream) {
+  if (!aligned16(q, k, v, o) || Dq != 120 || Dv != 120)
+    return (int)cudaErrorInvalidValue;
+  return launch_wgmma<120, 120>(q, k, v, o, bh, group, Sq, Sk, causal,
+                                window, scale, (cudaStream_t)stream);
+}
+
+// wgmma_96, bfloat16: (Dq, Dv) = (96, 96), q, k, v, o 16-byte aligned
+// (phi3-vision-4b's heads).
+int flash_attention_bf16_wgmma_96(const void* q, const void* k, const void* v,
+                                  void* o, int bh, int group, int Sq, int Sk,
+                                  int Dq, int Dv, int causal, int window,
+                                  float scale, void* stream) {
+  if (!aligned16(q, k, v, o) || Dq != 96 || Dv != 96)
+    return (int)cudaErrorInvalidValue;
+  return launch_wgmma<96, 96>(q, k, v, o, bh, group, Sq, Sk, causal, window,
+                              scale, (cudaStream_t)stream);
+}
+
+// The wgmma_120 and wgmma_96 kernels' dynamic shared memory, bytes, and
+// their rings' depth.
+int flash_attention_wgmma_120_smem_bytes(void) {
+  return wgf::Cfg<120, 120>::SMEM_BYTES;
+}
+int flash_attention_wgmma_120_stages(void) {
+  return wgf::Cfg<120, 120>::STAGES;
+}
+int flash_attention_wgmma_96_smem_bytes(void) {
+  return wgf::Cfg<96, 96>::SMEM_BYTES;
+}
+int flash_attention_wgmma_96_stages(void) { return wgf::Cfg<96, 96>::STAGES; }
 
 // mma_sync, bfloat16: Dq == Dv == 128, q, k, v, o 16-byte aligned.
 int flash_attention_bf16_mma_sync(const void* q, const void* k,

@@ -276,10 +276,56 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "n"(TRANS_B));
 }
 
+// the same at N = 96 and N = 120 (48 and 60 floats a thread), A from
+// registers: flash attention's P v at Dv = 96 and 120.  v's tile is
+// N-major in the 128-byte swizzle, whose atom is 64 columns wide, so the
+// product ends inside its second atom; on an H100 it gives what n = 128
+// over the zero-filled columns gives, and faster (PERF.md)
+#define HOPPER_D4(c, d, i) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3])
+#define HOPPER_R48                                                         \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                     \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "           \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "           \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+#define HOPPER_R48_59                                                      \
+  ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59"
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[48],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {" HOPPER_R48
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : HOPPER_D32("+f", d, 0), HOPPER_D8("+f", d, 32),
+        HOPPER_D8("+f", d, 40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[60],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %65, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 {" HOPPER_R48
+      HOPPER_R48_59 "}, {%60, %61, %62, %63}, %64, p, 1, 1, %66;\n}\n"
+      : HOPPER_D32("+f", d, 0), HOPPER_D8("+f", d, 32),
+        HOPPER_D8("+f", d, 40), HOPPER_D8("+f", d, 48),
+        HOPPER_D4("+f", d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TRANS_B));
+}
+
+#undef HOPPER_D4
 #undef HOPPER_D8
 #undef HOPPER_D32
 #undef HOPPER_D64
 #undef HOPPER_R32
+#undef HOPPER_R48
+#undef HOPPER_R48_59
 #undef HOPPER_R64
 #undef HOPPER_R64_127
 

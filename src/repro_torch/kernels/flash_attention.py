@@ -31,15 +31,20 @@ alignment alone:
 * ``"wgmma_dv"``: the same kernel instantiated at ``(Dq, Dv)`` in
   ``WGMMA_DV_HEAD_DIMS`` — (96, 64), MLA's heads (minicpm3-4b's prefill
   and scoring) — bf16, 16-byte aligned, with its own entry point;
+* ``"wgmma_120"`` and ``"wgmma_96"``: the same kernel at (120, 120)
+  (h2o-danube3-4b, GQA with a window) and (96, 96) (phi3-vision-4b), bf16,
+  16-byte aligned, an entry point each;
 * ``"cuda_core"``: everything else — float32, other head dims, unaligned
   bf16 — on the CUDA cores.
 
-A fourth kernel, ``"mma_sync"`` (the tensor-core kernel that served the
+``WGMMA_INSTANCES`` maps each instantiated ``(Dq, Dv)`` to its kernel.
+
+One more kernel, ``"mma_sync"`` (the tensor-core kernel that served the
 LM path before the ``wgmma`` one), is reached only through the private
-``_launch``, as the timed yardstick; so is ``"cuda_core"`` at MLA's heads,
-beside ``wgmma_dv``.  ``LAUNCHES`` counts every launch,
-``VARIANT_LAUNCHES`` the launches of each kernel, ``PLAIN_CALLS`` the
-plain version's calls.
+``_launch``, as the timed yardstick; so is ``"cuda_core"`` at the head
+dims of ``wgmma_dv``, ``wgmma_120`` and ``wgmma_96``.  ``LAUNCHES``
+counts every launch, ``VARIANT_LAUNCHES`` the launches of each kernel,
+``PLAIN_CALLS`` the plain version's calls.
 """
 
 from __future__ import annotations
@@ -61,9 +66,14 @@ NEG = -1e18
 MAX_HEAD_DIM = 128     # the widest head of a ported config
 WGMMA_HEAD_DIM = 128   # the wgmma kernel's Dq == Dv
 WGMMA_DV_HEAD_DIMS = ((96, 64),)   # the wgmma_dv instances' (Dq, Dv)
+# every (Dq, Dv) the TMA + wgmma template is instantiated at, and its kernel
+WGMMA_INSTANCES = {(WGMMA_HEAD_DIM, WGMMA_HEAD_DIM): "wgmma",
+                   **{dims: "wgmma_dv" for dims in WGMMA_DV_HEAD_DIMS},
+                   (120, 120): "wgmma_120", (96, 96): "wgmma_96"}
 DTYPES = (torch.float32, torch.bfloat16)
 
-VARIANTS = ("wgmma", "wgmma_dv", "cuda_core", "mma_sync")
+VARIANTS = ("wgmma", "wgmma_dv", "wgmma_120", "wgmma_96", "cuda_core",
+            "mma_sync")
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 VARIANT_LAUNCHES: Dict[str, int] = {v: 0 for v in VARIANTS}
 PLAIN_CALLS: Dict[str, int] = {"flash_attention": 0}
@@ -85,10 +95,7 @@ def plan(dq: int, dv: int, dtype: torch.dtype, aligned: bool) -> str:
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention: no kernel for {dtype}")
     if dtype == torch.bfloat16 and aligned:
-        if dq == dv == WGMMA_HEAD_DIM:
-            return "wgmma"
-        if (dq, dv) in WGMMA_DV_HEAD_DIMS:
-            return "wgmma_dv"
+        return WGMMA_INSTANCES.get((dq, dv), "cuda_core")
     return "cuda_core"
 
 
@@ -177,6 +184,8 @@ def build() -> Path:
 # the library's entry point of each kernel (cuda_core: by input type)
 ENTRY_POINTS = {"wgmma": "flash_attention_bf16_wgmma",
                 "wgmma_dv": "flash_attention_bf16_wgmma_dv",
+                "wgmma_120": "flash_attention_bf16_wgmma_120",
+                "wgmma_96": "flash_attention_bf16_wgmma_96",
                 "mma_sync": "flash_attention_bf16_mma_sync",
                 ("cuda_core", torch.float32): "flash_attention_f32",
                 ("cuda_core", torch.bfloat16): "flash_attention_bf16"}
@@ -190,7 +199,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = i
     for name in ("flash_attention_wgmma_smem_bytes",
                  "flash_attention_wgmma_dv_smem_bytes",
-                 "flash_attention_wgmma_dv_stages"):
+                 "flash_attention_wgmma_dv_stages",
+                 "flash_attention_wgmma_120_smem_bytes",
+                 "flash_attention_wgmma_120_stages",
+                 "flash_attention_wgmma_96_smem_bytes",
+                 "flash_attention_wgmma_96_stages"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
 
@@ -229,7 +242,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     """Launch kernel ``variant`` on checked CUDA tensors.  Private:
     ``flash_attention`` passes the kernel ``plan`` picks; timing scripts
     and the card tests pass ``"mma_sync"``, or ``"cuda_core"`` where the
-    plan picks a ``wgmma`` kernel, to run that kernel on the same
+    plan picks a ``wgmma`` instance, to run that kernel on the same
     inputs."""
     group = _check_shapes(q, k, v, causal, window)
     bh, sq, dq = q.shape

@@ -323,7 +323,8 @@ def exact_f32():
     (3, 1, 100, 77, 64, 64, False, 0, torch.bfloat16),      # Sq != Sk
     (2, 2, 128, 128, 128, 64, True, 0, torch.bfloat16),     # Dv != Dq
     (2, 2, 96, 96, 32, 32, True, 0, torch.bfloat16),
-    (2, 2, 200, 200, 120, 120, True, 0, torch.bfloat16),    # h2o-danube
+    # h2o-danube's 120: the wgmma_120 instance
+    (2, 2, 200, 200, 120, 120, True, 0, torch.bfloat16),
 ])
 def test_kernel_flash_attention_matches_plain(card, exact_f32, bh, bkv, sq,
                                               sk, dq, dv, causal, window,
@@ -334,8 +335,8 @@ def test_kernel_flash_attention_matches_plain(card, exact_f32, bh, bkv, sq,
                for shape in ((bh, sq, dq), (bkv, sk, dq), (bkv, sk, dv)))
     launches = FA.LAUNCHES["flash_attention"]
     variant = FA.plan(dq, dv, dtype, True)
-    assert variant == ("wgmma" if dtype == torch.bfloat16 and dq == dv == 128
-                       else "cuda_core")
+    assert variant == (FA.WGMMA_INSTANCES.get((dq, dv), "cuda_core")
+                       if dtype == torch.bfloat16 else "cuda_core")
     before = FA.VARIANT_LAUNCHES[variant]
     out = FA.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -1021,6 +1022,166 @@ def test_wgmma_dv_entry_refuses_other_head_dims(card):
     q, k, v = _bf16_qkv(card, 2, 2, 128, 128, seed=3, dq=96, dv=96)
     with pytest.raises(RuntimeError, match="wgmma_dv"):
         FA._launch(q, k, v, True, 0, None, "wgmma_dv")
+
+
+# the instances at equal head dims other than 128: h2o-danube3-4b's 120
+# (GQA 32 / 8, window 4096) and phi3-vision-4b's 96
+NEW_INSTANCES = [(120, "wgmma_120"), (96, "wgmma_96")]
+
+
+@pytest.mark.parametrize("d,variant", NEW_INSTANCES)
+@pytest.mark.parametrize("bh,bkv,sq,sk,causal,window", [
+    (32, 8, 2048, 2048, True, 512),    # GQA 4, S past the window
+    (8, 2, 1000, 1000, True, 300),     # ragged, window edge inside a tile
+    (4, 1, 333, 333, True, 0),         # ragged, GQA 4
+    (3, 3, 77, 77, True, 0),           # one ragged tile, Sk < 128
+    (8, 8, 2048, 2048, True, 0),       # MHA, phi3-vision's S
+    (4, 4, 640, 640, False, 0),        # non-causal
+    (4, 4, 1000, 1000, False, 100),    # non-causal with a window
+    (3, 1, 100, 300, False, 0),        # Sq != Sk, GQA 3
+])
+def test_new_wgmma_instances_match_plain(card, d, variant, bh, bkv, sq, sk,
+                                         causal, window):
+    """The ``wgmma_120`` and ``wgmma_96`` instances against the plain
+    version, element by element within ``FA.bf16_error_bound``; exactly
+    one launch, on the planned instance."""
+    q, k, v = _bf16_qkv(card, bh, bkv, sq, sk, seed=bh + sq + window + d,
+                        dq=d, dv=d)
+    assert FA.plan(d, d, torch.bfloat16, FA._aligned16(q, k, v)) == variant
+    before = dict(FA.VARIANT_LAUNCHES)
+    out = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    ran = {n: FA.VARIANT_LAUNCHES[n] - before[n] for n in FA.VARIANTS}
+    assert ran == {n: int(n == variant) for n in FA.VARIANTS}
+    assert out.dtype == torch.bfloat16 and out.shape == (bh, sq, d)
+    assert_flash_close(out, q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("d,variant", NEW_INSTANCES)
+@pytest.mark.parametrize("bh,bkv,s,causal,window", [(3, 3, 200, True, 0),
+                                                    (3, 3, 1000, False, 0),
+                                                    (8, 2, 333, True, 100)])
+def test_new_wgmma_instances_keep_each_head_to_itself(card, d, variant, bh,
+                                                      bkv, s, causal,
+                                                      window):
+    """As ``test_wgmma_flash_keeps_each_head_to_itself``, at 120 and 96:
+    the 240- and 192-byte rows of a ragged S stay in their own head (loads
+    past Sk and past D read zeros, the o store is clipped at Sq and at D);
+    every head is held separately."""
+    q, k, v = _bf16_qkv(card, bh, bkv, s, s, seed=bh + s + d,
+                        head_offset=8.0, dq=d, dv=d)
+    before = FA.VARIANT_LAUNCHES[variant]
+    out = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.VARIANT_LAUNCHES[variant] == before + 1
+    want = FA.flash_attention_torch(q, k, v, causal=causal,
+                                    window=window).float()
+    bound = FA.bf16_error_bound(q, k, v, causal=causal, window=window)
+    for h in range(bh):
+        err = (out[h].float() - want[h]).abs()
+        assert bool((err <= bound[h]).all()), (
+            f"head {h}: {int((err > bound[h]).sum())} elements beyond the "
+            f"bf16 bound, max |err| {float(err.max()):.3e}")
+
+
+@pytest.mark.parametrize("d,variant", NEW_INSTANCES)
+def test_new_wgmma_instances_write_nothing_past_d(card, d, variant):
+    """The o store clips at column D: an output view inside a wider buffer
+    filled with a sentinel keeps the sentinel in the padding (the kernel
+    is launched through its entry point on that view, rows D apart)."""
+    q, k, v = _bf16_qkv(card, 4, 1, 333, 333, seed=d, dq=d, dv=d)
+    lib = FA._build.load(FA.SOURCE, FA._bind)
+    flat = torch.full((4 * 333 * d + 64,), 7.0, dtype=torch.bfloat16,
+                      device=card)
+    out = flat[:4 * 333 * d].view(4, 333, d)
+    err = getattr(lib, FA.ENTRY_POINTS[variant])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 4, 4, 333,
+        333, d, d, 1, 0, d ** -0.5, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert bool((flat[4 * 333 * d:] == 7.0).all())
+    assert_flash_close(out, q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("d,variant", NEW_INSTANCES)
+@pytest.mark.parametrize("bh,bkv,s,causal,window", [
+    (32, 8, 2048, True, 512), (4, 2, 512, True, 100), (3, 1, 77, False, 0)])
+def test_new_wgmma_instances_are_deterministic(card, d, variant, bh, bkv, s,
+                                               causal, window):
+    """Two calls on the same inputs give bit-equal outputs."""
+    q, k, v = _bf16_qkv(card, bh, bkv, s, s, seed=17, dq=d, dv=d)
+    before = FA.VARIANT_LAUNCHES[variant]
+    x = FA.flash_attention(q, k, v, causal=causal, window=window)
+    y = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.VARIANT_LAUNCHES[variant] == before + 2
+    assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("d,variant", NEW_INSTANCES)
+def test_new_wgmma_entries_refuse_other_head_dims_and_unaligned(card, d,
+                                                                variant):
+    """Each new entry point takes its own (D, D) only, with 16-byte
+    aligned pointers; its ring is 2 stages deep in the shared memory the
+    library reports."""
+    lib = FA._build.load(FA.SOURCE, FA._bind)
+    assert getattr(lib, f"flash_attention_{variant}_stages")() == 2
+    assert getattr(lib, f"flash_attention_{variant}_smem_bytes")() <= 232448
+    other = 96 if d == 120 else 120
+    q, k, v = _bf16_qkv(card, 2, 2, 128, 128, seed=3, dq=other, dv=other)
+    with pytest.raises(RuntimeError, match=variant):
+        FA._launch(q, k, v, True, 0, None, variant)
+    q, k, v = _bf16_qkv(card, 2, 2, 128, 128, seed=3, dq=d, dv=d)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)
+    flat[1:].copy_(q.flatten())
+    q1 = flat[1:].view(q.shape)
+    assert not FA._aligned16(q1, k, v)
+    assert FA.plan(d, d, torch.bfloat16, FA._aligned16(q1, k, v)) == (
+        "cuda_core")
+    with pytest.raises(RuntimeError, match=variant):
+        FA._launch(q1, k, v, True, 0, None, variant)
+
+
+@pytest.mark.parametrize("d,variant", NEW_INSTANCES)
+def test_cuda_core_flash_still_matches_plain_at_new_head_dims(card, d,
+                                                              variant):
+    """The ``cuda_core`` kernel at (D, D) in bf16 through the private
+    launcher: the yardstick ``chip_smoke.py`` phase 16 times beside the new
+    instance."""
+    q, k, v = _bf16_qkv(card, 8, 2, 1000, 1000, seed=d, dq=d, dv=d)
+    before = dict(FA.VARIANT_LAUNCHES)
+    out = FA._launch(q, k, v, True, 300, None, "cuda_core")
+    torch.cuda.synchronize()
+    ran = {n: FA.VARIANT_LAUNCHES[n] - before[n] for n in FA.VARIANTS}
+    assert ran == {n: int(n == "cuda_core") for n in FA.VARIANTS}
+    assert_flash_close(out, q, k, v, causal=True, window=300)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("variant,i", [("wgmma", 0), ("wgmma", 1),
+                                       ("wgmma_dv", 0), ("wgmma_dv", 1)])
+def test_wgmma_128_and_dv_instances_keep_their_bits(card, variant, i):
+    """The template's generalisation to partial boxes leaves the 128 / 128
+    and 96 / 64 instances' code as it was: their outputs on the pinned
+    inputs (``chip_smoke.PINNED_FLASH``) are bit for bit the earlier
+    source's (the SHA-256 in ``chip_smoke.PINNED_DIGESTS``)."""
+    cs = _chip_smoke()
+    case = cs.PINNED_FLASH[variant][i]
+    q, k, v = cs.pinned_flash_inputs(case, card)
+    causal, window = case[5:]
+    assert FA.plan(case[3], case[4], torch.bfloat16, True) == variant
+    out = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert cs.output_digest(out) == cs.PINNED_DIGESTS[(variant, i)]
 
 
 def test_mla_block_on_card_kernel_matches_chunked(card, exact_f32):

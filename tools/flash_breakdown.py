@@ -31,14 +31,27 @@ exponentials' floor.  A cut applies to both instances:
 * ``forward_rounds``: not a cut but the item order the kernel does not
   use -- every round of items dealt to the blocks forwards;
 * ``stages_2``: a k/v ring of 2 stages (the D 128 instance's depth; the
-  ``wgmma_dv`` instance's is 3).
+  ``wgmma_dv`` instance's is 3);
+* ``pv_boxes``: not a cut but the P v width the kernel does not use at
+  (120, 120) and (96, 96) -- the boxes' 128, m64n128k16 over the
+  zero-filled v columns, instead of n = Dv (the 128 / 128 and 96 / 64
+  instances are unchanged by it); its output is checked against the
+  bf16 bound too.
+
+The ``wgmma_120`` and ``wgmma_96`` instances are timed the same way at
+h2o-danube3-4b's layer shape (32 heads over 8, S 8192, window 4096) and
+phi3-vision-4b's (B 4 x 32 heads, S 2048), beside ``cuda_core`` and SDPA.
 
 ``--against`` builds another version of the source (an unpacked older
 commit's, say) beside the real one, checks that the D 128 instance gives
-the same bits at the two shapes and times the two in turns.
+the same bits at the two shapes and times the two in turns.  With
+``--digests`` too it builds only those two and prints, for the D 128 and
+the ``wgmma_dv`` instances of each, the SHA-256 of the output on every
+case of ``chip_smoke.PINNED_FLASH`` (the digests
+``tests/test_torch_cuda.py`` pins) and whether the two sources agree.
 
 A cut kernel's output is wrong on purpose: only its time is read (the
-``overlap`` kernel's output is right).  Times
+``overlap`` and ``pv_boxes`` kernels' outputs are right).  Times
 are device times by CUDA-graph replay (``chip_smoke.graph_ms``), the
 cuts in turns with the real kernel.  It also prints what ``nvcc -Xptxas
 -v`` said of each build and, through ``cuobjdump -sass``, the real
@@ -89,7 +102,7 @@ OVERLAP = ("""      issue_pv(o, p, vs(sp));
       wgmma_wait<0>();
       fence_regs(o);
       if (lane == 0) mbar_arrive(v_empty(sp));
-      issue_qk<DQ / 16>(s_acc, qa, ks(s));
+      issue_qk<C::QK_STEPS>(s_acc, qa, ks(s));
       your_turn();
       wgmma_wait<0>();
       fence_regs(s_acc);
@@ -97,7 +110,7 @@ OVERLAP = ("""      issue_pv(o, p, vs(sp));
       tile_softmax(s_acc, m, l, alpha, row, col, it.first + i * wgf::BK, lo,
                    Sk, causal, window, scale2);
 """,
-           """      issue_qk<DQ / 16>(s_acc, qa, ks(s));
+           """      issue_qk<C::QK_STEPS>(s_acc, qa, ks(s));
       issue_pv(o, p, vs(sp));
       your_turn();
       wgmma_wait<1>();
@@ -115,6 +128,17 @@ FORWARD_ROUNDS = ("  return n * gridDim.x + ((n & 1) ? gridDim.x - 1 - "
 STAGES_2 = ("  static constexpr int STAGES =\n      (SMEM_MAX - 1024 - 2 * "
             "QK_TILE - 8 * 4) / (QK_TILE + V_TILE + 8 * 4);\n",
             "  static constexpr int STAGES = 2;\n")
+
+
+
+# not a cut but the other P v width at (120, 120) and (96, 96): the
+# boxes' 128 columns, m64n128k16
+PV_BOXES = [("  float o[DV / 2], s_acc[64];\n",
+             "  float o[C::V_BOXES * 32], s_acc[64];\n"),
+            ("    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;\n",
+             "    for (int i = 0; i < C::V_BOXES * 32; ++i) o[i] = 0.f;\n"),
+            ("      for (int j = 0; j < DV / 8; ++j) {\n",
+             "      for (int j = 0; j < C::V_BOXES * 8; ++j) {\n")]
 CUTS = {
     "overlap": [OVERLAP],
     "no_pingpong": [NO_PINGPONG],
@@ -124,21 +148,25 @@ CUTS = {
     "loads_only": [NO_QK, NO_PV, NO_SOFTMAX],
     "forward_rounds": [FORWARD_ROUNDS],
     "stages_2": [STAGES_2],
+    "pv_boxes": PV_BOXES,
 }
-# the instances' mangled names (the source instantiates D 128 and 96 / 64)
+# the instances' mangled names (the source instantiates D 128, 96 / 64,
+# 120 / 120 and 96 / 96)
 DV_KERNEL = "flash_attention_wgmma_kernelILi96ELi64E"
+NEW_KERNELS = ("flash_attention_wgmma_kernelILi120ELi120E",
+               "flash_attention_wgmma_kernelILi96ELi96E")
 
 
-def build_cuts(against=None) -> dict:
-    """{name: (library, path)} for the real source, each cut copy and, if
-    given, the ``against`` source (as ``"against"``), built in
-    parallel."""
+def build_cuts(against=None, cuts=True) -> dict:
+    """{name: (library, path)} for the real source, each cut copy (unless
+    ``cuts`` is false) and, if given, the ``against`` source (as
+    ``"against"``), built in parallel."""
     src = FA.SOURCE.read_text()
     OUT.mkdir(parents=True, exist_ok=True)
     paths = {"full": FA.SOURCE}
     if against is not None:
         paths["against"] = Path(against).resolve()
-    for name, subs in CUTS.items():
+    for name, subs in (CUTS.items() if cuts else ()):
         text = src
         for old, new in subs:
             if text.count(old) != 1:
@@ -154,10 +182,14 @@ def build_cuts(against=None) -> dict:
     for name, so in built.items():
         lib = ctypes.CDLL(str(so))
         if name == "against":     # an older source may lack entry points
-            fn = lib.flash_attention_bf16_wgmma
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-                ctypes.c_float, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            for entry in ("flash_attention_bf16_wgmma",
+                          "flash_attention_bf16_wgmma_dv"):
+                fn = getattr(lib, entry, None)
+                if fn is None:
+                    continue
+                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+                    ctypes.c_float, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
         else:
             FA._bind(lib)
         libs[name] = (lib, so)
@@ -190,28 +222,29 @@ def sass_report(so: Path, kernel: str = KERNEL) -> str:
             f"(a wait after every HGMMA: ptxas serialised them)")
 
 
-def launch(lib, q, k, v) -> torch.Tensor:
-    """One causal call of the library's wgmma kernel (D 128) or its
-    wgmma_dv instance (Dq != Dv)."""
+def launch(lib, q, k, v, causal=True, window=0) -> torch.Tensor:
+    """One call (causal unless told otherwise) of the library's wgmma
+    instance at q's and v's head dims."""
     bh, sq, dq = q.shape
     dv = v.shape[2]
     out = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
-    fn = (lib.flash_attention_bf16_wgmma if dq == dv
-          else lib.flash_attention_bf16_wgmma_dv)
+    fn = getattr(lib, FA.ENTRY_POINTS[FA.WGMMA_INSTANCES[(dq, dv)]])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
-             bh // k.shape[0], sq, k.shape[1], dq, dv, 1, 0, dq ** -0.5,
-             torch.cuda.current_stream().cuda_stream)
+             bh // k.shape[0], sq, k.shape[1], dq, dv, int(causal), window,
+             dq ** -0.5, torch.cuda.current_stream().cuda_stream)
     _build.launch_check("flash_breakdown", err)
     return out
 
 
-def cut_times(libs, q, k, v, reps: int) -> tuple:
+def cut_times(libs, q, k, v, reps: int, window: int = 0) -> tuple:
     """({cut: device ms}, the real kernel's device ms: a median of its
     turns between the cuts, and their range)."""
-    full = lambda: launch(libs["full"][0], q, k, v)  # noqa: E731
+    full = lambda: launch(libs["full"][0], q, k, v,  # noqa: E731
+                          window=window)
     fulls, row = [cs.graph_ms([full], reps)], {}
     for name in CUTS:
-        cut = lambda lib=libs[name][0]: launch(lib, q, k, v)  # noqa: E731
+        cut = lambda lib=libs[name][0]: launch(  # noqa: E731
+            lib, q, k, v, window=window)
         row[name] = cs.graph_ms([cut], reps)
         fulls.append(cs.graph_ms([full], reps))
     return row, sorted(fulls)[len(fulls) // 2], (min(fulls), max(fulls))
@@ -274,6 +307,45 @@ def mla_shape(libs, gen, dev) -> None:
           f"round forwards)", flush=True)
 
 
+def new_shapes(libs, gen, dev) -> None:
+    """The wgmma_120 and wgmma_96 instances at their archs' layer shapes:
+    the cuts, the ``pv_boxes`` alternative (held to the bf16 bound), the
+    cuda_core kernel, SDPA (cuDNN's, the window as a boolean mask), the
+    bound and the exponentials' floor of the pairs the mask leaves."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for (b, h, kv, s, d, window) in ((1, 32, 8, 8192, 120, 4096),
+                                     (4, 32, 32, 2048, 96, 0)):
+        q = torch.randn((b * h, s, d), generator=gen, device=dev).bfloat16()
+        k = torch.randn((b * kv, s, d), generator=gen, device=dev).bfloat16()
+        v = torch.randn((b * kv, s, d), generator=gen, device=dev).bfloat16()
+        bms, by = cs.flash_bound(q, k, v, causal=True, window=window)
+        floor = cs.exp_floor(q, k, causal=True, window=window)
+        want = FA.flash_attention_torch(q, k, v, window=window).float()
+        bnd = FA.bf16_error_bound(q, k, v, window=window)
+        ok = {n: float(((launch(libs[n][0], q, k, v, window=window).float()
+                         - want).abs() / bnd).max())
+              for n in ("full", "pv_boxes")}
+        del want, bnd
+        row, full_ms, (lo, hi) = cut_times(libs, q, k, v, 10, window)
+        old = cs.graph_ms([lambda: FA._launch(q, k, v, True, window, None,
+                                              "cuda_core")], 3)
+        sdpa, _ = cs.sdpa_call(q, k, v, b, window)
+        with sdpa_kernel([SDPBackend.CUDNN_ATTENTION]):
+            lib_ms = cs.graph_ms([sdpa], 10)
+        variant = FA.WGMMA_INSTANCES[(d, d)]
+        print(f"{variant} (B {b} x {h} heads over {kv}, S {s}, D {d}, "
+              f"window {window}, bf16, causal; bound {bms:.4f} ms, {by}; "
+              f"exponentials' floor {floor:.4f} ms): full {full_ms:.4f} ms "
+              f"(median of {len(CUTS) + 1}, range {lo:.4f}-{hi:.4f}; "
+              f"{100 * bms / full_ms:.1f}% of bound); cuda_core {old:.4f}; "
+              f"cuDNN SDPA {lib_ms:.4f} (full / SDPA "
+              f"{full_ms / lib_ms:.3f}); max |err| / bf16 bound: full "
+              f"{ok['full']:.3f}, pv_boxes {ok['pv_boxes']:.3f}", flush=True)
+        print("  cuts (device ms): " + ", ".join(
+            f"{name} {row[name]:.4f}" for name in CUTS), flush=True)
+        del q, k, v, sdpa
+
+
 def against_parent(libs, gen, dev) -> None:
     """The D 128 instance of the real source against the ``against``
     source's: bit for bit, and device time in turns (against, real, real,
@@ -295,6 +367,21 @@ def against_parent(libs, gen, dev) -> None:
               f"{times[2]:.4f}", flush=True)
 
 
+def digests(libs, dev) -> None:
+    """The SHA-256 of the D 128 and wgmma_dv instances' outputs on the
+    pinned cases, from the real and the ``against`` source."""
+    for variant, cases in cs.PINNED_FLASH.items():
+        for case in cases:
+            q, k, v = cs.pinned_flash_inputs(case, dev)
+            causal, window = case[5:]
+            got = {n: cs.output_digest(launch(libs[n][0], q, k, v, causal,
+                                              window))
+                   for n in ("against", "full")}
+            print(f"pinned {variant} {case}: against {got['against']}, "
+                  f"this source {got['full']}, equal "
+                  f"{got['against'] == got['full']}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("flash_breakdown: no CUDA device", file=sys.stderr)
@@ -303,9 +390,14 @@ def main() -> int:
     import torch.nn.functional as F
     ap = argparse.ArgumentParser()
     ap.add_argument("--against", help="another flash_attention.cu")
+    ap.add_argument("--digests", action="store_true",
+                    help="with --against: only the pinned outputs' digests")
     args = ap.parse_args()
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
+    if args.digests:
+        digests(build_cuts(args.against, cuts=False), dev)
+        return 0
     libs = build_cuts(args.against)
     for name, (_, so) in libs.items():
         log = so.with_suffix(".log").read_text()
@@ -318,7 +410,7 @@ def main() -> int:
         for line in log.splitlines():
             if "Performance" in line:    # ptxas' wgmma serialisation notes
                 print(f"  {line.strip()}", flush=True)
-    for kern in (KERNEL, DV_KERNEL):
+    for kern in (KERNEL, DV_KERNEL) + NEW_KERNELS:
         print(f"full {kern}, SASS: {sass_report(libs['full'][1], kern)}",
               flush=True)
 
@@ -353,6 +445,7 @@ def main() -> int:
             + f"; the overlap kernel within the bf16 bound: {ok}", flush=True)
         del q, k, v, q4, k4, v4
     mla_shape(libs, gen, dev)
+    new_shapes(libs, gen, dev)
     if args.against:
         against_parent(libs, gen, dev)
     print(cs.card_line(), flush=True)
