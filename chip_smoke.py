@@ -87,7 +87,9 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    before and read just after each (flash once -- on the ``wgmma`` kernel
    -- and the scan 7 times per forward, on the ring kernel, no plain
    version on the card);
-   peak memory, and one scoring forward under ``torch.profiler``;
+   peak memory, then one more decode step and one scoring forward
+   under ``torch.profiler``, each with the port's spans (``decode``,
+   ``attention``, ``mamba``, ``moe``, ...) beside the kernels;
 9. the systolic GEMM through ``kernels.ops.gemm`` at olmo-1b's distinct
    GEMM shapes, as the port's ``extract_operators`` gives them (decode at
    the network cells' shape, M = 8, and prefill at 4 x 2048, M = 8192; K
@@ -545,15 +547,43 @@ def rate(cells: int, secs) -> float:
     return cells * N_CAND / float(np.median(secs))
 
 
+PORT_SPAN = "repro_torch."   # the port's spans (``runtime.spans``)
+
+
+def kernels_and_spans(averages) -> tuple:
+    """Split ``torch.profiler``'s ``key_averages()`` into ({kernel: device
+    us}, {port span: [calls, host us, device us]}).  A port span is a range
+    on the host (``runtime.spans``); its host us are its inclusive time and
+    its device us those of the kernels launched inside it on its thread.
+    An entry of a span's name on the device's timeline (the copy a user
+    annotation would have there) is no kernel."""
+    kernels, spans = {}, {}
+    for evt in averages:
+        on_device = str(evt.device_type).split(".")[-1] == "CUDA"
+        if evt.key.startswith(PORT_SPAN):
+            if not on_device:
+                spans[evt.key] = [evt.count, evt.cpu_time_total, getattr(
+                    evt, "device_time_total",
+                    getattr(evt, "cuda_time_total", 0.0))]
+            continue
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        # kernel events only: an operator's entry repeats its kernels' time
+        if on_device and us > 0:
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us
+    return kernels, spans
+
+
 def profile_call(fn, label: str, watch=(), cpu: bool = True,
                  top: int = 10) -> None:
     """One call of ``fn`` under ``torch.profiler``: device time by kernel
     and the share of the host-clock span the device was busy, and the
     summed device time of the kernels whose names hold each string of
-    ``watch`` (or, for a tuple, any of its strings).  Prints "not
-    measured" when the profiler records no device time.  ``cpu=False``
-    records the device's activity only (a call of ~10⁶ operator events
-    costs minutes of the profiler's own work with the host's)."""
+    ``watch`` (or, for a tuple, any of its strings); then the port's spans
+    (``kernels_and_spans``).  Prints "not measured" when the profiler
+    records no device time.  ``cpu=False`` records the device's activity
+    only (a call of ~10⁶ operator events costs minutes of the profiler's
+    own work with the host's)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CUDA]
@@ -564,15 +594,7 @@ def profile_call(fn, label: str, watch=(), cpu: bool = True,
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    dev_us = {}
-    for evt in prof.key_averages():
-        # kernel events only: an operator's entry repeats its kernels' time
-        if str(evt.device_type).split(".")[-1] != "CUDA":
-            continue
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0.0))
-        if us > 0:
-            dev_us[evt.key] = dev_us.get(evt.key, 0.0) + us
+    dev_us, spans = kernels_and_spans(prof.key_averages())
     total = sum(dev_us.values())
     if total <= 0:
         print(f"profile ({label}): device time not measured (the profiler "
@@ -592,6 +614,11 @@ def profile_call(fn, label: str, watch=(), cpu: bool = True,
         print(f"  kernels named {' or '.join(f'*{n}*' for n in names)}: "
               f"{us / 1e3:.2f} ms {100 * us / total:.1f}% of the device "
               f"time", flush=True)
+    if spans:
+        print("  port spans (calls, host ms inclusive, device ms of the "
+              "kernels launched inside): " + ", ".join(
+                  f"{k[len(PORT_SPAN):]} {n} {h / 1e3:.2f} {d / 1e3:.2f}"
+                  for k, (n, h, d) in sorted(spans.items())), flush=True)
 
 
 def bound(triples: int, nbytes: int):
@@ -1425,7 +1452,8 @@ def jamba_phases(FA, SS, dev) -> dict:
     FA.reset_counts()
     SS.reset_counts()
     t = time.perf_counter()
-    cache = model.init_cache(SCORE_B, PROMPT + GEN, device=dev)
+    # one slot more than the timed steps fill: the profiled step's
+    cache = model.init_cache(SCORE_B, PROMPT + GEN + 1, device=dev)
     lg, cache = lm.prefill(params, cfg, prompt, cache, impl="flash_pallas")
     tok = lg[:, -1].argmax(-1)[:, None]
     torch.cuda.synchronize()
@@ -1453,6 +1481,8 @@ def jamba_phases(FA, SS, dev) -> dict:
           f"{1e3 * decode_s / GEN:.2f} ms/token; launches {gen_counts}; "
           f"first row {out[0, :8].tolist()}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    profile_call(lambda: model.decode_step(params, tok, cache),
+                 f"one jamba decode step B={SCORE_B}")
     profile_call(lambda: model.logits(params, batch),
                  f"jamba scoring forward B={SCORE_B} S={SCORE_S}",
                  watch=("selective_scan", "flash_attention"))

@@ -5,7 +5,9 @@ Each builder closes over the ``ModelConfig``; the steps take the model
 (``LM``, or ``EncDec`` for whisper), the optimizer state and the batch.
 The reference's one ``jax.jit`` per step has no counterpart: a step runs
 eagerly, and its update is in place (``optim.adamw_update``), where the
-reference donates its buffers.
+reference donates its buffers.  While a profiler records, the train step
+opens the spans ``repro_torch.forward`` (the loss inside it),
+``repro_torch.backward`` and ``repro_torch.optimizer`` (``runtime.spans``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from ..models import get_model
 from ..models.config import ModelConfig
 from ..models.lm import LM
 from ..optim import AdamWConfig, adamw_init, adamw_update
+from ..runtime.spans import span
 
 __all__ = ["cross_entropy", "make_loss_fn", "make_train_step",
            "make_prefill_step", "make_decode_step", "init_train_state",
@@ -70,7 +73,8 @@ def make_loss_fn(cfg: ModelConfig, remat: bool = True) -> Callable:
         # on a mesh the means are partial sums: resolve them to replicas,
         # so that the backward starts from a replica (DTensor cannot turn
         # a shard of the gradient back into a partial sum before 2.13)
-        loss = pspec.shard(cross_entropy(logits, batch["labels"]))
+        with span("repro_torch.loss"):
+            loss = pspec.shard(cross_entropy(logits, batch["labels"]))
         aux = pspec.shard(aux)
         return loss + aux, {"loss": loss, "aux": aux}
 
@@ -92,9 +96,11 @@ def make_train_step(cfg: ModelConfig, opt: Optional[AdamWConfig] = None,
 
     def grads_of(params: LM, weights: Dict[str, torch.Tensor], batch):
         with torch.enable_grad():
-            total, metrics = loss_fn(params, batch)
-            grads = torch.autograd.grad(total, list(weights.values()),
-                                        allow_unused=True)
+            with span("repro_torch.forward"):
+                total, metrics = loss_fn(params, batch)
+            with span("repro_torch.backward"):
+                grads = torch.autograd.grad(total, list(weights.values()),
+                                            allow_unused=True)
         grads = {n: torch.zeros_like(p) if g is None else g
                  for (n, p), g in zip(weights.items(), grads)}
         return total.detach(), {k: v.detach() for k, v in metrics.items()}, \
@@ -121,8 +127,9 @@ def make_train_step(cfg: ModelConfig, opt: Optional[AdamWConfig] = None,
                 loss = loss + l
             grads = {n: g / n_micro for n, g in grads.items()}
             loss = loss / n_micro
-        _, opt_state, opt_metrics = adamw_update(opt, weights, grads,
-                                                 opt_state)
+        with span("repro_torch.optimizer"):
+            _, opt_state, opt_metrics = adamw_update(opt, weights, grads,
+                                                     opt_state)
         metrics = {**metrics, **opt_metrics, "loss": loss}
         return params, opt_state, metrics
 

@@ -37,7 +37,10 @@ numerics-critical leaves (``_F32_LEAVES``) in float32, as ``cast_tree``
 does in the reference (under remat, once, outside the checkpointed groups,
 as the reference casts outside its scan); ``convert.cast_params`` does
 that cast once, in place, for serving, so a pass then copies nothing.
-Caches are updated in place (see ``layers.attention_block``).  The layer
+Caches are updated in place (see ``layers.attention_block``).  While a
+profiler records, each part of a pass opens a span (``runtime.spans``):
+the embedding, each layer's cast, norms, mixer and FFN, the unembedding,
+and ``prefill`` or ``decode`` around the whole.  The layer
 output's cotangent is cast to the compute dtype
 (``_grad_to_compute_dtype``), as in the reference.  The reference's
 ``_barrier`` (an XLA scheduling hint, the identity) has no counterpart in
@@ -67,6 +70,7 @@ from . import layers as L
 from .layers import init_norm, norm
 from .mamba import init_mamba, init_mamba_cache, mamba_block
 from .moe import init_moe, moe_block
+from ..runtime.spans import span, spanned
 
 __all__ = ["pattern_period", "cast_tree", "init_params", "param_specs",
            "abstract_params", "stacks", "reference_layout", "forward",
@@ -345,6 +349,12 @@ def _grad_to_compute_dtype(x: torch.Tensor) -> torch.Tensor:
     return _GradToComputeDtype.apply(x) if x.requires_grad else x
 
 
+@spanned("repro_torch.norm")
+def _norm(cfg: ModelConfig, x: torch.Tensor, p: Mapping) -> torch.Tensor:
+    return norm(cfg.norm, x, p)
+
+
+@spanned("repro_torch.layer")
 def _layer_apply(cfg: ModelConfig, kind: str, is_moe: bool, lp: Mapping,
                  x: torch.Tensor, positions: torch.Tensor,
                  cache: Optional[Dict], impl: str, chunk: int,
@@ -355,16 +365,18 @@ def _layer_apply(cfg: ModelConfig, kind: str, is_moe: bool, lp: Mapping,
     # sequence-sharded into the projections; DTensor cannot multiply an
     # activation split over both batch and sequence (no strided split of a
     # flattened (B, S) before torch 2.13), so serving gathers it too
-    h = pspec.shard(norm(cfg.norm, x, lp["ln1"]), "batch", None, None)
+    h = pspec.shard(_norm(cfg, x, lp["ln1"]), "batch", None, None)
     if kind == "attn":
         fn = L.mla_block if cfg.attention.kind == "mla" else \
             L.attention_block
-        mixed, new_cache = fn(lp["mix"], h, cfg.attention,
-                              positions=positions, causal=True, cache=cache,
-                              impl=impl, chunk=chunk)
+        with span("repro_torch.attention"):
+            mixed, new_cache = fn(lp["mix"], h, cfg.attention,
+                                  positions=positions, causal=True,
+                                  cache=cache, impl=impl, chunk=chunk)
     else:
-        mixed, new_cache = mamba_block(lp["mix"], h, cfg.ssm, cache=cache,
-                                       impl=cfg.ssm_impl)
+        with span("repro_torch.mamba"):
+            mixed, new_cache = mamba_block(lp["mix"], h, cfg.ssm,
+                                           cache=cache, impl=cfg.ssm_impl)
     # the row-parallel products' partial sums resolve onto the residual's
     # layout before the add (DTensor's gradient cannot return a shard to a
     # partial sum before torch 2.13)
@@ -372,11 +384,14 @@ def _layer_apply(cfg: ModelConfig, kind: str, is_moe: bool, lp: Mapping,
     x = _grad_to_compute_dtype(pspec.shard(x + mixed, "batch", "sp", None))
     if "ffn" not in lp:          # pure-mamba layer (falcon-mamba)
         return x, new_cache, aux
-    h = pspec.shard(norm(cfg.norm, x, lp["ln2"]), "batch", None, None)
+    h = pspec.shard(_norm(cfg, x, lp["ln2"]), "batch", None, None)
     if is_moe:
-        ff, aux = moe_block(lp["ffn"], h, cfg.moe, activation=cfg.activation)
+        with span("repro_torch.moe"):
+            ff, aux = moe_block(lp["ffn"], h, cfg.moe,
+                                activation=cfg.activation)
     else:
-        ff = L.mlp_block(lp["ffn"], h, cfg.activation)
+        with span("repro_torch.mlp"):
+            ff = L.mlp_block(lp["ffn"], h, cfg.activation)
     ff = pspec.shard(ff, "batch", "sp", None)
     return (_grad_to_compute_dtype(pspec.shard(x + ff, "batch", "sp", None)),
             new_cache, aux)
@@ -406,6 +421,7 @@ def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
 
+@spanned("repro_torch.embed")
 def _embed(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
            patches, dtype: torch.dtype) -> torch.Tensor:
     x = lookup(params.embed, tokens).to(dtype)
@@ -418,6 +434,7 @@ def _embed(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     return pspec.shard(x, "batch", "sp", None)
 
 
+@spanned("repro_torch.unembed")
 def _unembed(params: LM, x: torch.Tensor, dtype: torch.dtype
              ) -> torch.Tensor:
     x = pspec.shard(x, "batch", None, None)   # sequence gathered, as above
@@ -431,7 +448,9 @@ def _unembed(params: LM, x: torch.Tensor, dtype: torch.dtype
 def _layers(params: LM, dtype: torch.dtype):
     """(layer, its parameters cast to the compute dtype), layer by layer."""
     for layer in params.layers:
-        yield layer, cast_tree(layer.tree(), dtype)
+        with span("repro_torch.cast"):
+            lp = cast_tree(layer.tree(), dtype)
+        yield layer, lp
 
 
 _KERNEL_IMPLS = {"attn": ("flash_pallas", "flash_pallas_interpret"),
@@ -503,7 +522,7 @@ def _forward(params: LM, cfg: ModelConfig, tokens, patches, impl: str,
             x, aux = checkpoint(run, layers[g0:g0 + n], x, aux,
                                 use_reentrant=False,
                                 preserve_rng_state=False)
-    x = norm(cfg.norm, x, params.final_norm.tree())
+    x = _norm(cfg, x, params.final_norm.tree())
     return _unembed(params, x, dtype), aux
 
 
@@ -574,6 +593,7 @@ def _unrecorded(fn):
 
 
 @_unrecorded
+@spanned("repro_torch.prefill")
 def prefill(params: LM, cfg: ModelConfig, tokens, cache: List[Dict],
             patches=None, impl: str = "chunked", chunk: int = 1024
             ) -> Tuple[torch.Tensor, List[Dict]]:
@@ -587,17 +607,20 @@ def prefill(params: LM, cfg: ModelConfig, tokens, cache: List[Dict],
         x, nc, _ = _layer_apply(cfg, layer.kind, layer.is_moe, lp, x,
                                 positions, c, impl, chunk)
         new_cache.append(nc if nc is not None else c)
-    x = norm(cfg.norm, x[:, -1:], params.final_norm.tree())
+    x = _norm(cfg, x[:, -1:], params.final_norm.tree())
     return _unembed(params, x, dtype), new_cache
 
 
 @_unrecorded
+@spanned("repro_torch.decode")
 def decode_step(params: LM, cfg: ModelConfig, token, cache: List[Dict]
                 ) -> Tuple[torch.Tensor, List[Dict]]:
     """One decode step.  token: (B, 1) -> logits (B, 1, V), caches."""
     dtype = _dtype(cfg.compute_dtype)
-    x = pspec.shard(lookup(params.embed, _tokens(params, token)).to(dtype),
-                    "batch", None, None)
+    with span("repro_torch.embed"):
+        x = pspec.shard(lookup(params.embed,
+                               _tokens(params, token)).to(dtype),
+                        "batch", None, None)
     positions = torch.full((1, 1), _find_pos(cache), dtype=torch.long,
                            device=x.device)
     new_cache = []
@@ -605,7 +628,7 @@ def decode_step(params: LM, cfg: ModelConfig, token, cache: List[Dict]
         x, nc, _ = _layer_apply(cfg, layer.kind, layer.is_moe, lp, x,
                                 positions, c, "dense", 1024)
         new_cache.append(nc if nc is not None else c)
-    x = norm(cfg.norm, x, params.final_norm.tree())
+    x = _norm(cfg, x, params.final_norm.tree())
     return _unembed(params, x, dtype), new_cache
 
 
