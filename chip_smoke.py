@@ -325,7 +325,7 @@ FP32_FLOP_PER_S = 67e12    # CUDA cores (same data sheet; an FMA counts as two)
 EXP_PER_S = 132 * 16 * 1.98e9
 BLOCK = 128            # the blocked engine's block size
 # the flash kernel's wgmma instance at D 128, as nvcc mangles it
-WGMMA_128 = "flash_attention_wgmma_kernelILi128ELi128E"
+WGMMA_128 = "flash_attention_wgmma_kernelILi128ELi128ELb0E"
 
 # -- the LM path: jamba-v0.1-52b at full width, one pattern period --------
 LM_ARCH = "jamba_v01_52b"
@@ -1316,10 +1316,16 @@ def bf16_agreement(lm, params, plain_cfg, kern_cfg, toks, f32_logits):
        logits as the plain path's (RMS within ``BF16_PARITY``).  The two
        paths' logits are not held to each other: the MoE router turns
        bf16-sized differences into another expert for a few tokens, and
-       the next layers spread that."""
+       the next layers spread that.
+
+    The plain side takes no kernel: its attention impl is ``"dense"``, as
+    the training flash kernels would take a chunked call here (checked:
+    ``train_fwd`` never launches)."""
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import layers as L
     from repro_torch.models.mamba import mamba_block
     rms = lambda t: float(t.float().square().mean().sqrt())  # noqa: E731
+    trained = FA.VARIANT_LAUNCHES["train_fwd"]
     dtype = torch.bfloat16
     x = lm._embed(params, plain_cfg, lm._tokens(params, toks), None, dtype)
     pos = torch.arange(x.shape[1], device=x.device)[None]
@@ -1360,6 +1366,8 @@ def bf16_agreement(lm, params, plain_cfg, kern_cfg, toks, f32_logits):
     check(err_k <= BF16_PARITY * err_p,
           f"bf16 kernel logits {err_k:.4e} from float32, more than "
           f"{BF16_PARITY} x the plain path's {err_p:.4e}")
+    check(FA.VARIANT_LAUNCHES["train_fwd"] == trained,
+          "the bf16 agreement launched the training flash kernel")
 
 
 @torch.no_grad()
@@ -1423,7 +1431,11 @@ def jamba_phases(FA, SS, dev) -> dict:
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB of weights",
           flush=True)
     cfg = replace(base, **kern)
-    bf16_agreement(lm, params, base, cfg, toks, out_p)
+    # the plain side on dense attention: at F32_S (one chunk) the chunked
+    # route would run it too, were its bf16 D 128 causal calls not sent to
+    # the training flash kernels
+    bf16_agreement(lm, params, replace(base, attention_impl="dense"), cfg,
+                   toks, out_p)
     del out_p
     model = get_model(cfg)
     batch = {"tokens": torch.randint(0, base.vocab_size, (SCORE_B, SCORE_S),
@@ -2389,9 +2401,10 @@ def fixed_batch(cfg, b: int, s: int, dev, seed: int = 0) -> dict:
 
 def train_parts(cfg, params, dev) -> None:
     """The parts of a step timed apart with CUDA events, as separate calls
-    at the step's shapes: chunked attention (each layer's forward twice
-    under remat, its backward once), cross-entropy forward + backward,
-    one AdamW update, the casts to bf16."""
+    at the step's shapes: the chunked route's attention (the training
+    flash kernels; each layer's forward twice under remat, its backward
+    once), cross-entropy forward + backward, one AdamW update, the casts
+    to bf16."""
     from repro_torch.launch.steps import cross_entropy
     from repro_torch.models import layers as L
     from repro_torch.models import lm
@@ -2403,12 +2416,16 @@ def train_parts(cfg, params, dev) -> None:
                .requires_grad_() for _ in range(3))
     g = torch.randn(q.shape, generator=gen, device=dev, dtype=bf16)
 
+    def attend():
+        return L._attend(q, k, v, causal=True, window=0, impl="chunked",
+                         chunk=1024)
+
     def attn_fwd():
         with torch.no_grad():
-            L.chunked_attention(q, k, v, causal=True)
+            attend()
 
     def attn_fwd_bwd():
-        L.chunked_attention(q, k, v, causal=True).backward(g)
+        attend().backward(g)
 
     fwd, fwd_bwd = cuda_ms(attn_fwd, 2), cuda_ms(attn_fwd_bwd, 2)
     del q, k, v, g
@@ -2428,23 +2445,29 @@ def train_parts(cfg, params, dev) -> None:
                              for layer in params.layers], 2)
     attn = cfg.n_layers * (fwd + fwd_bwd)
     print(f"step parts (CUDA events, separate calls at the step's shapes): "
-          f"chunked attention {attn:.1f} ms ({cfg.n_layers} layers x "
+          f"attention (the chunked route: the training flash kernels) "
+          f"{attn:.1f} ms ({cfg.n_layers} layers x "
           f"(forward {fwd:.2f} + forward and backward {fwd_bwd:.2f} ms)); "
           f"cross-entropy forward + backward {ce:.1f} ms; AdamW update "
           f"{adam:.1f} ms; casts of the layers to bf16 {casts:.1f} ms; "
           f"together {attn + ce + adam + casts:.1f} ms", flush=True)
 
 
-def train_full(dev) -> None:
-    """13 (a): olmo-1b at full width and depth through ``train_loop``."""
+def train_full(dev) -> dict:
+    """13 (a): olmo-1b at full width and depth through ``train_loop``.
+    Returns the training attention kernels' launches in its steps."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as L
     cfg = get_config(TRAIN_ARCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     lines = []
+    FA.reset_counts()
+    L.CHUNKED_CUDA_CALLS = 0
     with TrainClock() as clock:
         t = time.perf_counter()
         params, metrics = train.train_loop(
@@ -2466,6 +2489,20 @@ def train_full(dev) -> None:
               flush=True)
     check(len(clock.secs) == TRAIN_STEPS == len(metrics.rows),
           f"{len(clock.secs)} timed steps")
+    # every layer's attention on the training kernels: its forward twice
+    # (remat), its backward once; no chunked call on the card
+    ran = {v: FA.VARIANT_LAUNCHES[v]
+           for v in ("train_fwd", "train_dq", "train_dkdv")}
+    per_step = {v: n / TRAIN_STEPS for v, n in ran.items()}
+    chunked = L.CHUNKED_CUDA_CALLS
+    print(f"attention over {TRAIN_STEPS} steps: VARIANT_LAUNCHES "
+          f"{dict(FA.VARIANT_LAUNCHES)}, CHUNKED_CUDA_CALLS {chunked} "
+          f"({per_step} a step)", flush=True)
+    layers = cfg.n_layers
+    check(per_step == {"train_fwd": 2 * layers, "train_dq": layers,
+                       "train_dkdv": layers}
+          and chunked == 0, f"training attention launches a step {per_step}"
+                            f", chunked calls on the card {chunked}")
     check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
               for r in metrics.rows), "losses and gradient norms finite")
     step_s = float(np.median(clock.secs[1:]))
@@ -2492,6 +2529,7 @@ def train_full(dev) -> None:
                         ("copy", "Memcpy")))
     del state
     train_parts(cfg, params, dev)
+    return ran
 
 
 def train_update(dev) -> None:
@@ -2622,14 +2660,159 @@ def train_families(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def train_phase(modules, dev) -> None:
+def check_only_training_attention(modules, what: str) -> None:
+    """Of the kernels and plain versions, only the training attention
+    kernels ran since the counters were zeroed; prints every count."""
+    from repro_torch.models import layers as L
+    FA = modules[1]
+    train = ("train_fwd", "train_dq", "train_dkdv")
+    counts = {f"{kind}{k}": v for mod in modules
+              for kind, d in (("", mod.LAUNCHES), ("plain ", mod.PLAIN_CALLS))
+              for k, v in d.items() if not (mod is FA and kind == "")}
+    counts.update({k: v for k, v in FA.VARIANT_LAUNCHES.items()
+                   if k not in train})
+    check(sum(counts.values()) == 0, f"kernels or plain versions other "
+                                     f"than the training attention ran in "
+                                     f"{what}: {counts}")
+    print(f"{what}: training attention launches "
+          f"{ {k: FA.VARIANT_LAUNCHES[k] for k in train} }, chunked calls on "
+          f"the card {L.CHUNKED_CUDA_CALLS}; every other kernel "
+          f"and plain version {counts}", flush=True)
+
+
+def train_attention_kernels(FA, dev) -> dict:
+    """The training attention kernels alone at olmo-1b's layer shape (B 4
+    x 16 heads, S 4096, D 128, bf16, causal), through the module's own
+    launchers (``_train_forward``, ``_train_backward`` and the latter's
+    three launches one by one).  Their outputs
+    against the plain versions, 8 heads at a time, as the card tests hold
+    them: o within ``bf16_error_bound``, the log-sum-exp within 1e-5, dq,
+    dk and dv within 2^-6 of the largest element.  Times by CUDA events
+    over back-to-back calls: the forward, each launch of the backward (D =
+    rowsum(dO o), ``train_dq``, ``train_dkdv``) and the whole backward;
+    each beside its bound (the multiply-adds of the causal pairs at the bf16
+    peak: 2 products forward, 5 backward -- S, dP, dV, dK, dQ -- of which
+    3 are ``train_dkdv``'s and 2 ``train_dq``'s; the S and dP that
+    ``train_dq`` makes again are the cost of a backward without atomics,
+    not work the bound counts), the plain versions and SDPA's forward and
+    backward (timed only, the library yardstick).  Returns the
+    kernels-line rows."""
+    from repro_torch.configs import get_config
+    a = get_config(TRAIN_ARCH).attention
+    bh, s, d = TRAIN_B * a.n_heads, TRAIN_S, a.head_dim
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = FA._train_forward(q, k, v, scale)
+    dq, dk, dv = FA._train_backward(q, k, v, o, lse, do, scale)
+    chunk = 8
+    errs = {"o": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for h in range(0, bh, chunk):
+        sl = slice(h, h + chunk)
+        po, plse = FA.flash_attention_train_torch(q[sl], k[sl], v[sl],
+                                                  scale=scale)
+        err = (o[sl].float() - po.float()).abs()
+        check(bool((err <= FA.bf16_error_bound(q[sl], k[sl], v[sl],
+                                               causal=True)).all()),
+              f"train_fwd o, heads {h}..: outside bf16_error_bound")
+        errs["o"] = max(errs["o"], float(err.max()))
+        err = float((lse[sl] - plse).abs().max())
+        check(err <= 1e-5 * (1.0 + float(plse.abs().max())),
+              f"train_fwd lse, heads {h}..: max |err| {err:.3e}")
+        errs["lse"] = max(errs["lse"], err)
+        want = FA.flash_attention_train_backward_torch(
+            q[sl], k[sl], v[sl], o[sl], lse[sl], do[sl], scale=scale)
+        for name, got, w in zip(("dq", "dk", "dv"),
+                                (dq[sl], dk[sl], dv[sl]), want):
+            err = float((got.float() - w.float()).abs().max())
+            top = float(w.float().abs().max())
+            check(err <= 2.0 ** -6 * top, f"{name}, heads {h}..: max |err| "
+                                          f"{err:.3e} of {top:.3e}")
+            errs[name] = max(errs[name], err)
+        del po, plse, want
+    print(f"flash_attention training kernels at ({bh}, {s}, {d}) bf16 "
+          f"causal against the plain versions ({chunk} heads at a time): "
+          f"max |err| " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()),
+          flush=True)
+    del dq, dk, dv
+
+    fwd_ms = cuda_ms(lambda: FA._train_forward(q, k, v, scale), 10)
+    dvec = FA._train_dot(o, do)
+    part = {"dot": cuda_ms(lambda: FA._train_dot(o, do), 10),
+            "train_dq": cuda_ms(lambda: FA._train_dq(
+                q, k, v, do, lse, dvec, scale), 10),
+            "train_dkdv": cuda_ms(lambda: FA._train_dkdv(
+                q, k, v, do, lse, dvec, scale), 10)}
+    bwd_ms = cuda_ms(lambda: FA._train_backward(q, k, v, o, lse, do, scale),
+                     10)
+
+    def plain_fwd():
+        for h in range(0, bh, chunk):
+            FA.flash_attention_train_torch(q[h:h + chunk], k[h:h + chunk],
+                                           v[h:h + chunk], scale=scale)
+
+    def plain_bwd():
+        for h in range(0, bh, chunk):
+            sl = slice(h, h + chunk)
+            FA.flash_attention_train_backward_torch(
+                q[sl], k[sl], v[sl], o[sl], lse[sl], do[sl], scale=scale)
+
+    plain_fwd_ms, plain_bwd_ms = cuda_ms(plain_fwd, 1), cuda_ms(plain_bwd, 1)
+    F = torch.nn.functional
+    q4, k4, v4 = (t.view(TRAIN_B, a.n_heads, s, d) for t in (q, k, v))
+    leaves = [t.clone().requires_grad_() for t in (q4, k4, v4)]
+    g4 = do.view(TRAIN_B, a.n_heads, s, d)
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), 10)
+    sdpa_bwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *leaves, is_causal=True).backward(g4), 10) - sdpa_fwd
+    pairs = bh * mask_pairs(s, s, True)
+
+    def bound(products):
+        return 2.0 * pairs * d * products / BF16_FLOP_PER_S * 1e3
+
+    backward = dict(ms=bwd_ms, bound_ms=bound(5), plain_ms=plain_bwd_ms,
+                    library_ms=sdpa_bwd, dot_ms=part["dot"])
+    rows = {}
+    for name, ms, products, plain_ms, library, err in (
+            ("train_fwd", fwd_ms, 2, plain_fwd_ms, sdpa_fwd, errs["o"]),
+            ("train_dq", part["train_dq"], 2, None, None, errs["dq"]),
+            ("train_dkdv", part["train_dkdv"], 3, None, None,
+             max(errs["dk"], errs["dv"]))):
+        print(f"flash_attention {name} at ({bh}, {s}, {d}) bf16 causal: "
+              f"{ms:.4f} ms, {100 * bound(products) / ms:.1f}% of its bound "
+              f"{bound(products):.4f} ms ({products} products)", flush=True)
+        rows[f"flash_attention_{name}"] = dict(
+            shape=[bh, s, d], dtype="bfloat16", ms=ms,
+            bound_ms=bound(products), bound_by="operations",
+            plain_ms=plain_ms, library_ms=library, max_abs_err=err,
+            variant=name, source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="none (the reference trains through plain attention)",
+            **({} if name == "train_fwd" else {"backward": backward}))
+    print(f"forward {fwd_ms:.4f} ms against plain {plain_fwd_ms:.2f} ms and "
+          f"SDPA's {sdpa_fwd:.4f} ms; backward (D {part['dot']:.4f} + "
+          f"train_dq + train_dkdv alone {sum(part.values()):.4f} ms) "
+          f"{bwd_ms:.4f} ms, {100 * bound(5) / bwd_ms:.1f}% of its bound "
+          f"{bound(5):.4f} ms (5 products), against plain "
+          f"{plain_bwd_ms:.2f} ms and SDPA's {sdpa_bwd:.4f} ms; forward + "
+          f"backward {fwd_ms + bwd_ms:.4f} ms against SDPA's "
+          f"{sdpa_fwd + sdpa_bwd:.4f} ms", flush=True)
+    return rows
+
+
+def train_phase(modules, dev) -> dict:
     """Phase 13: training on the card, the kernels' counters zeroed just
-    before and read just after (no kernel of the table is on this
-    path)."""
+    before and read just after (the training attention kernels are on
+    this path, nothing else of the table); then those kernels alone.
+    Returns their kernels-line rows, each with its launches in (a)'s
+    olmo-1b steps (``path_launches``)."""
+    from repro_torch.models import layers as L
     for mod in modules:
         mod.reset_counts()
+    L.CHUNKED_CUDA_CALLS = 0
     lap = lap_clock()
-    train_full(dev)
+    ran = train_full(dev)
     gc.collect()
     torch.cuda.empty_cache()
     lap("(a) olmo-1b at full width and depth")
@@ -2641,13 +2824,12 @@ def train_phase(modules, dev) -> None:
     lap("(c) crash-resume")
     train_families(dev)
     lap("(d) olmoe-1b-7b and falcon-mamba-7b")
-    counts = {f"{kind}{k}": v for mod in modules
-              for kind, d in (("", mod.LAUNCHES), ("plain ", mod.PLAIN_CALLS))
-              for k, v in d.items()}
-    check(sum(counts.values()) == 0, f"kernels or plain versions ran on "
-                                     f"the training path: {counts}")
-    print(f"training: kernel launches and plain calls across phase 13 "
-          f"{counts}", flush=True)
+    check_only_training_attention(modules, "phase 13")
+    rows = train_attention_kernels(modules[1], dev)
+    for row in rows.values():
+        row["path_launches"] = ran[row["variant"]]
+    lap("(e) the training attention kernels alone")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3241,18 +3423,22 @@ def sharded_train(dev, mesh) -> None:
           f"{float(np.median(ss)) - float(np.median(ps)):+.3f} s a step, "
           f"medians); peak device memory plain {ppk / 2**30:.2f} GiB, "
           f"sharded {spk / 2**30:.2f} GiB", flush=True)
+    # the training attention runs in the flash kernels (ctypes launches),
+    # which the counter, a dispatch mode over aten ops, does not see
     want = analytic_train_flops(cfg, TRAIN_B, TRAIN_S)
-    rel = (counter.flops - want["total"]) / want["total"]
+    want["counted"] = want["total"] - want["attention"]
+    rel = (counter.flops - want["counted"]) / want["counted"]
     print(f"counted step (StepCounter, rank 0's shards): "
           f"{counter.flops:.6e} FLOP ({counter.flops_by_op}), bytes "
           f"{counter.bytes:.4e} (eager, no fusion), collectives "
           f"{counter.collective_counts} ({counter.collective_bytes:.4e} B); "
-          f"analytic {want['total']:.6e} = 6NT {want['6NT']:.6e} + remat "
-          f"forward {want['remat']:.6e} + chunked attention "
-          f"{want['attention']:.6e}: counted/analytic - 1 = {rel:+.3e}",
+          f"analytic {want['counted']:.6e} = 6NT {want['6NT']:.6e} + remat "
+          f"forward {want['remat']:.6e} (the chunked attention's "
+          f"{want['attention']:.6e} runs in the training flash kernels, "
+          f"outside the counter): counted/analytic - 1 = {rel:+.3e}",
           flush=True)
     check(abs(rel) <= FLOP_TOL, f"counted FLOPs {counter.flops} vs analytic "
-                                f"{want['total']}: {rel:+.3e}")
+                                f"{want['counted']}: {rel:+.3e}")
     terms = roofline_terms(counter.flops, counter.bytes,
                            counter.collective_bytes)
     largest = max(terms, key=terms.get)
@@ -3407,12 +3593,15 @@ def dry_run_cells(out_dir: Path) -> None:
 def sharded_phase(modules, dev) -> None:
     """Phase 15: (a) the sharded olmo-1b step and (b) minicpm3-4b's caches
     on a (1, 1) NCCL mesh, (c) the dry run of the production meshes; the
-    kernels' counters zeroed before and read after (none is on these
-    paths: the step builders take the chunked impls)."""
+    kernels' counters zeroed before and read after (the step builders take
+    the chunked impls: only the training attention kernels run, on
+    olmo-1b's layers)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as L
     for mod in modules:
         mod.reset_counts()
+    L.CHUNKED_CUDA_CALLS = 0
     lap = lap_clock()
     open_nccl_group(dev)
     try:
@@ -3426,10 +3615,7 @@ def sharded_phase(modules, dev) -> None:
     dry_run_cells(Path(__file__).resolve().parent / "build" /
                   "dryrun_phase15")
     lap("(c) the dry run")
-    ran = {f"{kind}{k}": v for mod in modules
-           for kind, d in (("", mod.LAUNCHES), ("plain ", mod.PLAIN_CALLS))
-           for k, v in d.items()}
-    check(sum(ran.values()) == 0, f"kernels ran in phase 15: {ran}")
+    check_only_training_attention(modules, "phase 15")
 
 
 # ---------------------------------------------------------------------------
@@ -3567,7 +3753,7 @@ def instance_build_line(FA, dq: int, dv: int) -> str:
     log = _build.library_path(FA.SOURCE).with_suffix(".log").read_text()
     lib = _build.load(FA.SOURCE, FA._bind)
     variant = FA.WGMMA_INSTANCES[(dq, dv)]
-    mangled = f"flash_attention_wgmma_kernelILi{dq}ELi{dv}E"
+    mangled = f"flash_attention_wgmma_kernelILi{dq}ELi{dv}ELb0E"
     return (f"{mangled}, nvcc -Xptxas -v: {ptxas_summary(log, mangled)}; "
             f"dynamic shared memory "
             f"{getattr(lib, f'flash_attention_{variant}_smem_bytes')()} B, "
@@ -3781,7 +3967,7 @@ EXTRA_KEYS = ("variant", "plan", "launch_ms", "device_ms",
               "library_device_ms", "old_kernel_ms", "old_kernel_device_ms",
               "pr12_ms", "pr12_device_ms", "cases", "full_mode_ms",
               "dense_bound_ms", "old_path_ms", "exp_floor_ms",
-              "sdpa_backends", "sdpa_default_backend")
+              "sdpa_backends", "sdpa_default_backend", "backward")
 
 
 def main() -> int:
@@ -3970,7 +4156,10 @@ def main() -> int:
     phase_done("12 (gradient search)")
 
     # -- 13. training on the card --------------------------------------------
-    train_phase((K, FA, SS, SG), dev)
+    train_rows = train_phase((K, FA, SS, SG), dev)
+    rows.update(train_rows)
+    launches.update({name: row.pop("path_launches")
+                     for name, row in train_rows.items()})
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("13 (training)")

@@ -50,6 +50,10 @@
 //     wgmma one (mma.sync m16n8k16, 64-row query tiles, synchronous k and v
 //     copies); reachable only through its own entry point, kept as the
 //     timed yardstick of the wgmma kernel.
+//   * train_fwd, train_dq, train_dkdv -- training at 128 / 128, causal:
+//     the wgmma instance that also writes the log-sum-exp, and the
+//     backward's kernels (the section "training" below explains them; they
+//     replace no Pallas kernel).
 //
 // All of them: the softmax runs in base 2 with scale * log2(e) folded in,
 // and a block walks only the key tiles from the first one inside the
@@ -76,6 +80,7 @@ constexpr int BKT = 64;       // keys per tile
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 scores each
 constexpr int LDT = 68;       // padded row of the transposed q / k / p tiles
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -740,14 +745,15 @@ __device__ __forceinline__ int item_of(int n) {
   return n * gridDim.x + ((n & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
-template <int DQ, int DV>
+template <int DQ, int DV, bool LSE = false>
 __global__ void __launch_bounds__(wgf::THREADS, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v,
                              const __grid_constant__ CUtensorMap map_o,
                              int bh_count, int group, int Sq, int Sk,
-                             int causal, int window, float scale2) {
+                             int causal, int window, float scale2,
+                             float* __restrict__ lse) {
   using C = wgf::Cfg<DQ, DV>;
   constexpr int STAGES = C::STAGES, BOX_COLS = wgf::BOX_COLS;
   constexpr int BOX_BYTES = wgf::BOX_BYTES;
@@ -915,6 +921,16 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                      : "memory");
       }
     }
+    // LSE (the training instance): each row's natural log-sum-exp of its
+    // scaled scores, ln 2 (m + log2 l), for the backward
+    if constexpr (LSE) {
+      if (lane % 4 == 0)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (row + 8 * h < Sq)
+            lse[(int64_t)it.bh * Sq + row + 8 * h] =
+                (m[h] + log2f(fmaxf(l[h], 1e-30f))) * LN2;
+    }
     fence_proxy_async();
     warpgroup_sync(1 + c);
     if (t == 0) {
@@ -950,10 +966,10 @@ bool encode_heads(CUtensorMap* map, const void* ptr, int cols, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DQ, int DV>
+template <int DQ, int DV, bool LSE = false>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  int bh, int group, int Sq, int Sk, int causal, int window,
-                 float scale, cudaStream_t stream) {
+                 float scale, cudaStream_t stream, float* lse = nullptr) {
   using C = wgf::Cfg<DQ, DV>;
   CUtensorMap mq, mk, mv, mo;
   if (!encode_heads(&mq, q, DQ, bh, Sq, wgf::BQ) ||
@@ -966,7 +982,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<DQ, DV>,
+    e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<DQ, DV, LSE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              C::SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
@@ -974,9 +990,481 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const int64_t items = (int64_t)bh * ((Sq + wgf::BQ - 1) / wgf::BQ);
   if (items > INT32_MAX) return (int)cudaErrorInvalidValue;
   const int grid = items < sms ? (int)items : sms;
-  flash_attention_wgmma_kernel<DQ, DV>
+  flash_attention_wgmma_kernel<DQ, DV, LSE>
       <<<grid, wgf::THREADS, C::SMEM_BYTES, stream>>>(
-          mq, mk, mv, mo, bh, group, Sq, Sk, causal, window, scale * LOG2E);
+          mq, mk, mv, mo, bh, group, Sq, Sk, causal, window, scale * LOG2E,
+          lse);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// training at (Dq, Dv) = (128, 128), bf16, causal, Sq == Sk a multiple of
+// 128: the forward as the wgmma instance that also writes each row's
+// log-sum-exp (flash_attention_wgmma_kernel<128, 128, true>), and the
+// backward below
+// ---------------------------------------------------------------------------
+//
+// Replaces no Pallas kernel: the reference trains through plain JAX
+// attention, which XLA fuses on the TPU, and its Pallas kernel has no
+// VJP.  Eager PyTorch fuses nothing, so the chunked route's float32 score
+// tiles, their elementwise passes and what autograd saved of them took
+// most of a training step; these kernels are the port's counterpart of
+// XLA's fusion, keeping scores and probabilities on chip in both
+// directions.
+//
+// What bounds them on this card: the products.  The backward does five
+// score-shaped products a (query, key) pair of the causal half -- S and dP
+// again, dV += P^T dO, dK += dS^T q, dQ += dS k -- against one read of q,
+// k, v, o, dO and the log-sum-exp and one write of dq, dk, dv: bound by
+// the tensor cores at every training shape.
+//
+// What the design does about it (FlashAttention-2's equations on Hopper's
+// wgmma, without atomics, so every gradient is bit-equal run to run):
+//
+//   * bwd_dot: D = rowsum(dO * o) in float32, one warp a row, a fixed
+//     shuffle tree.
+//   * bwd_dkdv: one block per (128-key tile, head), heaviest (the first
+//     key tiles, which every later query sees) first.  k and v of the
+//     tile stay in shared memory; one producer thread streams the query
+//     tiles of 64 rows from the diagonal to the end -- q, dO, their
+//     log-sum-exp and D -- through a ring of STAGES slots by TMA.  Each of
+//     two consumer warpgroups owns 64 keys and computes, per query tile,
+//     S^T = k q^T and dP^T = v dO^T (m64n64k16, both operands in shared
+//     memory), P^T = exp2(S^T scale log2 e - lse log2 e) (masked on the
+//     diagonal tile; a tile wholly above it is skipped), dS^T = P^T (dP^T
+//     - D), and accumulates dV += P^T dO and dK += dS^T q in registers
+//     (m64n128k16, P^T and dS^T rounded to bf16 A fragments in registers,
+//     dO and q read N-major through the transpose bit).
+//   * bwd_dq: one block per (128-query tile, head), heaviest (the last)
+//     first; q and dO stay in shared memory, the key tiles of 64 rows up to
+//     the diagonal stream through the ring, and each consumer warpgroup
+//     (64 queries) computes S, dP, P and dS the same way and accumulates
+//     dQ += dS k.  So the two kernels issue seven products a pair, S and
+//     dP twice: the price of a dQ without float atomics (one kernel that
+//     made dQ beside dK and dV would add every key tile's share into dq).
+//
+// Numerics: score products are bf16 x bf16 into float32 (exact products,
+// as the chunked route's upcast einsum); P is rounded to bf16 for P^T dO,
+// as the forward rounds it for P v; dS is rounded to bf16 for its two
+// products (the one rounding the chunked route does not make, as in
+// FlashAttention-2 and -3); every sum is float32 in a fixed order.
+
+namespace wgb {
+constexpr int D = 128;                  // Dq == Dv
+constexpr int THREADS = 384;            // producer + 2 consumer warpgroups
+constexpr int BN = 128;                 // the block's own rows
+constexpr int BM = 64;                  // rows of a ring tile
+constexpr int STAGES = 4;
+constexpr int OWN_BOX = BN * 128;       // 64 columns x 128 rows, bf16
+constexpr int OWN_TILE = 2 * OWN_BOX;   // 128 rows x 128 columns
+constexpr int RING_BOX = BM * 128;      // 64 columns x 64 rows
+constexpr int RING_TILE = 2 * RING_BOX;
+constexpr int VEC = BM * 4;             // a ring tile's lse or D, float32
+// shared memory: two own tiles, STAGES slots of two ring tiles (and, in
+// bwd_dkdv, the slots' lse and D), the barriers (own_full, full[s],
+// empty[s]), 1024 bytes of alignment
+constexpr int RING_OFF = 2 * OWN_TILE;
+constexpr int VEC_OFF = RING_OFF + STAGES * 2 * RING_TILE;
+constexpr int BAR_OFF = VEC_OFF + STAGES * 2 * VEC;
+constexpr int SMEM_BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+static_assert(SMEM_BYTES <= wgf::SMEM_MAX, "shared memory");
+}  // namespace wgb
+
+// d = A B^T over 64 rows of A and the 64 rows of B, 128 deep: 8 k steps of
+// m64n64k16, both operands K-major in the 128-byte swizzle, boxes of 64
+// columns a_box and b_box bytes apart
+__device__ __forceinline__ void issue_rows64(float (&d)[32], uint32_t a,
+                                             int a_box, uint32_t b,
+                                             int b_box) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < wgb::D / 16; ++kk) {
+    const uint64_t da = sw128_desc(a + (kk / 4) * a_box + (kk % 4) * 32, 16,
+                                   1024);
+    const uint64_t db = sw128_desc(b + (kk / 4) * b_box + (kk % 4) * 32, 16,
+                                   1024);
+    if (kk == 0)
+      wgmma_ss_set<0>(d, da, db);
+    else
+      wgmma_ss<0>(d, da, db, 1);
+  }
+  wgmma_commit();
+}
+
+// acc += A b over 64 rows of b: 4 k steps of m64n128k16, A the bf16
+// fragments in registers, b (64 rows x 128 columns, two boxes of 64
+// columns RING_BOX apart) read N-major through the transpose bit
+__device__ __forceinline__ void issue_acc64(float (&acc)[64],
+                                            const uint32_t (&a)[4][4],
+                                            uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<1>(acc, a[kk], sw128_desc(b + kk * 2048, wgb::RING_BOX, 1024),
+                1);
+}
+
+// a 64-column float32 tile as the bf16 A fragments of 4 k steps
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// a warpgroup's 64 x 128 float32 accumulator times `scale`, as bf16 rows
+// `row0` + ... of a (rows, 128) tensor
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+                                           const float (&acc)[64],
+                                           int64_t row0, float scale,
+                                           int rw, int col) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    __nv_bfloat16* r = out + (row0 + rw + 8 * h) * wgb::D;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<uint32_t*>(r + 8 * j + col) =
+          pack_bf16(acc[4 * j + 2 * h] * scale,
+                    acc[4 * j + 2 * h + 1] * scale);
+  }
+}
+
+// D = rowsum(dO * o): one warp a row of 128, 4 columns a lane
+__global__ void __launch_bounds__(256)
+flash_attention_bwd_dot_kernel(const __nv_bfloat16* __restrict__ o,
+                               const __nv_bfloat16* __restrict__ dout,
+                               float* __restrict__ dvec, int64_t rows) {
+  const int64_t r = (int64_t)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  const uint2 a = *reinterpret_cast<const uint2*>(o + r * wgb::D + 4 * lane);
+  const uint2 b =
+      *reinterpret_cast<const uint2*>(dout + r * wgb::D + 4 * lane);
+  auto f2 = [](const unsigned& bits) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
+  };
+  const float2 a0 = f2(a.x), a1 = f2(a.y), b0 = f2(b.x), b1 = f2(b.y);
+  float acc = a0.x * b0.x;
+  acc = fmaf(a0.y, b0.y, acc);
+  acc = fmaf(a1.x, b1.x, acc);
+  acc = fmaf(a1.y, b1.y, acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) dvec[r] = acc;
+}
+
+// dK and dV of one 128-key tile of one head (see the note above)
+__global__ void __launch_bounds__(wgb::THREADS, 1)
+flash_attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
+                                const __grid_constant__ CUtensorMap map_k,
+                                const __grid_constant__ CUtensorMap map_v,
+                                const __grid_constant__ CUtensorMap map_do,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ dvec,
+                                __nv_bfloat16* __restrict__ dk,
+                                __nv_bfloat16* __restrict__ dv, int bh_count,
+                                int S, float scale, float scale2) {
+  using namespace wgb;
+  extern __shared__ uint8_t smem_kv[];
+  const uint32_t raw = smem_u32(smem_kv);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint8_t* gbase = smem_kv + (base - raw);   // the same, generic
+  const uint32_t ks = base, vs = base + OWN_TILE;
+  auto qs = [&](int s) { return base + RING_OFF + s * 2 * RING_TILE; };
+  auto dos = [&](int s) { return qs(s) + RING_TILE; };
+  auto vec = [&](int s) { return VEC_OFF + s * 2 * VEC; };  // lse, then D
+  const uint32_t bars = base + BAR_OFF;
+  const uint32_t own_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + STAGES + s); };
+
+  const int bh = blockIdx.x % bh_count;
+  const int key0 = (blockIdx.x / bh_count) * BN;   // heaviest tiles first
+  const int m0 = key0 / BM;                         // the diagonal's tile
+  const int nq = S / BM - m0;
+  const int wgid = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);       // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wgid == 0) {
+    setmaxnreg_dec<24>();
+    if (t != 0) return;
+    mbar_expect_tx(own_full, 2 * OWN_TILE);
+    for (int j = 0; j < 2; ++j) {
+      tma_load_3d(ks + j * OWN_BOX, &map_k, j * 64, key0, bh, own_full);
+      tma_load_3d(vs + j * OWN_BOX, &map_v, j * 64, key0, bh, own_full);
+    }
+    for (int i = 0; i < nq; ++i) {
+      const int s = i % STAGES, phase = (i / STAGES) & 1;
+      const int r0 = (m0 + i) * BM;
+      mbar_wait(empty(s), phase ^ 1);
+      mbar_expect_tx(full(s), 2 * RING_TILE + 2 * VEC);
+      for (int j = 0; j < 2; ++j) {
+        tma_load_3d(qs(s) + j * RING_BOX, &map_q, j * 64, r0, bh, full(s));
+        tma_load_3d(dos(s) + j * RING_BOX, &map_do, j * 64, r0, bh, full(s));
+      }
+      bulk_load(base + vec(s), lse + (int64_t)bh * S + r0, VEC, full(s));
+      bulk_load(base + vec(s) + VEC, dvec + (int64_t)bh * S + r0, VEC,
+                full(s));
+    }
+    return;
+  }
+
+  // consumers: warpgroup c owns keys klo .. klo + 63; thread t holds keys
+  // klo + rw (+ 8) and query columns col + 8j (+ 1) of each S^T tile
+  setmaxnreg_inc<240>();
+  const int c = wgid - 1;
+  const int warp = t / 32, lane = t % 32;
+  const int rw = 16 * warp + lane / 4, col = 2 * (lane % 4);
+  const int klo = key0 + 64 * c;
+  const uint32_t ka = ks + c * 64 * 128, va = vs + c * 64 * 128;
+  float dk_acc[64], dv_acc[64], s_acc[32], dp_acc[32];
+  uint32_t pa[4][4], da[4][4];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  mbar_wait(own_full, 0);
+  for (int i = 0; i < nq; ++i) {
+    const int s = i % STAGES, phase = (i / STAGES) & 1;
+    const int q0 = (m0 + i) * BM;
+    mbar_wait(full(s), phase);
+    if (q0 + BM - 1 < klo) {          // every query before every key
+      if (lane == 0) mbar_arrive(empty(s));
+      continue;
+    }
+    issue_rows64(s_acc, ka, OWN_BOX, qs(s), RING_BOX);     // S^T = k q^T
+    issue_rows64(dp_acc, va, OWN_BOX, dos(s), RING_BOX);   // dP^T = v dO^T
+    const float* lse_s = reinterpret_cast<const float*>(gbase + vec(s));
+    const float* d_s = lse_s + BM;
+    const bool diag = q0 < klo + BM - 1;
+    wgmma_wait<1>();
+    fence_regs(s_acc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qc = 8 * j + col + e;
+        const float l2 = lse_s[qc] * LOG2E;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float& x = s_acc[4 * j + 2 * h + e];
+          x = exp2_approx(fmaf(x, scale2, -l2));
+          if (diag && q0 + qc < klo + rw + 8 * h) x = 0.f;
+        }
+      }
+    wgmma_wait<0>();
+    fence_regs(dp_acc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float dd = d_s[8 * j + col + e];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int idx = 4 * j + 2 * h + e;
+          dp_acc[idx] = s_acc[idx] * (dp_acc[idx] - dd);
+        }
+      }
+    pack_a(pa, s_acc);
+    pack_a(da, dp_acc);
+    wgmma_fence();
+    issue_acc64(dv_acc, pa, dos(s));   // dV += P^T dO
+    issue_acc64(dk_acc, da, qs(s));    // dK += dS^T q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+  const int64_t row0 = (int64_t)bh * S + klo;
+  store_rows(dk, dk_acc, row0, scale, rw, col);
+  store_rows(dv, dv_acc, row0, 1.f, rw, col);
+}
+
+// dQ of one 128-query tile of one head (see the note above)
+__global__ void __launch_bounds__(wgb::THREADS, 1)
+flash_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const __grid_constant__ CUtensorMap map_do,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ dvec,
+                              __nv_bfloat16* __restrict__ dq, int bh_count,
+                              int S, float scale, float scale2) {
+  using namespace wgb;
+  extern __shared__ uint8_t smem_dq[];
+  const uint32_t base = (smem_u32(smem_dq) + 1023u) & ~1023u;
+  const uint32_t qs = base, dos = base + OWN_TILE;
+  auto ks = [&](int s) { return base + RING_OFF + s * 2 * RING_TILE; };
+  auto vs = [&](int s) { return ks(s) + RING_TILE; };
+  const uint32_t bars = base + BAR_OFF;
+  const uint32_t own_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + STAGES + s); };
+
+  const int bh = blockIdx.x % bh_count;
+  const int q0 = (S / BN - 1 - blockIdx.x / bh_count) * BN;  // heaviest first
+  const int nk = (q0 + BN) / BM;       // key tiles up to the diagonal
+  const int wgid = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wgid == 0) {
+    setmaxnreg_dec<24>();
+    if (t != 0) return;
+    mbar_expect_tx(own_full, 2 * OWN_TILE);
+    for (int j = 0; j < 2; ++j) {
+      tma_load_3d(qs + j * OWN_BOX, &map_q, j * 64, q0, bh, own_full);
+      tma_load_3d(dos + j * OWN_BOX, &map_do, j * 64, q0, bh, own_full);
+    }
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % STAGES, phase = (i / STAGES) & 1;
+      mbar_wait(empty(s), phase ^ 1);
+      mbar_expect_tx(full(s), 2 * RING_TILE);
+      for (int j = 0; j < 2; ++j) {
+        tma_load_3d(ks(s) + j * RING_BOX, &map_k, j * 64, i * BM, bh, full(s));
+        tma_load_3d(vs(s) + j * RING_BOX, &map_v, j * 64, i * BM, bh, full(s));
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup c owns queries qlo .. qlo + 63; thread t holds
+  // rows qlo + rw (+ 8) and key columns col + 8j (+ 1) of each S tile
+  setmaxnreg_inc<240>();
+  const int c = wgid - 1;
+  const int warp = t / 32, lane = t % 32;
+  const int rw = 16 * warp + lane / 4, col = 2 * (lane % 4);
+  const int qlo = q0 + 64 * c;
+  const uint32_t qa = qs + c * 64 * 128, doa = dos + c * 64 * 128;
+  float l2[2], dd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t r = (int64_t)bh * S + qlo + rw + 8 * h;
+    l2[h] = lse[r] * LOG2E;
+    dd[h] = dvec[r];
+  }
+  float dq_acc[64], s_acc[32], dp_acc[32];
+  uint32_t da[4][4];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq_acc[i] = 0.f;
+
+  mbar_wait(own_full, 0);
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES, phase = (i / STAGES) & 1;
+    const int k0 = i * BM;
+    mbar_wait(full(s), phase);
+    if (k0 > qlo + BM - 1) {          // every key after every query
+      if (lane == 0) mbar_arrive(empty(s));
+      continue;
+    }
+    issue_rows64(s_acc, qa, OWN_BOX, ks(s), RING_BOX);     // S = q k^T
+    issue_rows64(dp_acc, doa, OWN_BOX, vs(s), RING_BOX);   // dP = dO v^T
+    const bool diag = k0 + BM - 1 > qlo;
+    wgmma_wait<1>();
+    fence_regs(s_acc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s_acc[4 * j + 2 * h + e];
+          x = exp2_approx(fmaf(x, scale2, -l2[h]));
+          if (diag && k0 + 8 * j + col + e > qlo + rw + 8 * h) x = 0.f;
+        }
+    wgmma_wait<0>();
+    fence_regs(dp_acc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int idx = 4 * j + 2 * h + e;
+          dp_acc[idx] = s_acc[idx] * (dp_acc[idx] - dd[h]);
+        }
+    pack_a(da, dp_acc);
+    wgmma_fence();
+    issue_acc64(dq_acc, da, ks(s));    // dQ += dS k
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+  store_rows(dq, dq_acc, (int64_t)bh * S + qlo, scale, rw, col);
+}
+
+int launch_bwd_dot(const void* o, const void* dout, float* dvec,
+                   int64_t rows, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  flash_attention_bwd_dot_kernel<<<(unsigned)((rows + 7) / 8), 256, 0,
+                                   stream>>>((const bf*)o, (const bf*)dout,
+                                             dvec, rows);
+  return (int)cudaGetLastError();
+}
+
+// the four maps of a backward kernel: q and dO as boxes of qrows rows, k
+// and v of krows (the block's own tiles 128 rows, the ring's 64)
+bool encode_bwd(CUtensorMap (&m)[4], const void* q, const void* k,
+                const void* v, const void* dout, int bh, int S, int qrows,
+                int krows) {
+  return encode_heads(&m[0], q, wgb::D, bh, S, qrows) &&
+         encode_heads(&m[1], k, wgb::D, bh, S, krows) &&
+         encode_heads(&m[2], v, wgb::D, bh, S, krows) &&
+         encode_heads(&m[3], dout, wgb::D, bh, S, qrows);
+}
+
+int launch_bwd_dq(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* dvec,
+                  void* dq, int bh, int S, float scale, cudaStream_t stream) {
+  CUtensorMap m[4];
+  if (!encode_bwd(m, q, k, v, dout, bh, S, wgb::BN, wgb::BM))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_bwd_dq_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wgb::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  flash_attention_bwd_dq_kernel<<<(S / wgb::BN) * bh, wgb::THREADS,
+                                  wgb::SMEM_BYTES, stream>>>(
+      m[0], m[1], m[2], m[3], lse, dvec, (__nv_bfloat16*)dq, bh, S, scale,
+      scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_dkdv(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* dvec,
+                    void* dk, void* dv, int bh, int S, float scale,
+                    cudaStream_t stream) {
+  CUtensorMap m[4];
+  if (!encode_bwd(m, q, k, v, dout, bh, S, wgb::BM, wgb::BN))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_bwd_dkdv_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wgb::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  flash_attention_bwd_dkdv_kernel<<<(S / wgb::BN) * bh, wgb::THREADS,
+                                    wgb::SMEM_BYTES, stream>>>(
+      m[0], m[1], m[2], m[3], lse, dvec, (__nv_bfloat16*)dk,
+      (__nv_bfloat16*)dv, bh, S, scale, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -1112,5 +1600,57 @@ int flash_attention_bf16_mma_sync(const void* q, const void* k,
                          group, Sq, Sk, causal, window, scale,
                          (cudaStream_t)stream);
 }
+
+// train_fwd, bfloat16: the wgmma kernel at (128, 128), causal, Sq == Sk ==
+// S a multiple of 128, that also writes lse (bh, S), float32: each row's
+// natural log-sum-exp of its scaled scores.  q, k, v, o 16-byte aligned.
+int flash_attention_train_fwd(const void* q, const void* k, const void* v,
+                              void* o, float* lse, int bh, int group, int S,
+                              float scale, void* stream) {
+  if (!aligned16(q, k, v, o) || S <= 0 || S % wgb::BN != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_wgmma<128, 128, true>(q, k, v, o, bh, group, S, S, 1, 0,
+                                      scale, (cudaStream_t)stream, lse);
+}
+
+// The backward of train_fwd, in order: train_bwd_dot (D = rowsum(dO * o),
+// float32, rows = bh * S), then train_dq and train_dkdv, each reading q,
+// k, v, dO (bh, S, 128), lse and D (bh, S): one head of k and v a query
+// head (GQA expanded), causal, S a multiple of 128; every pointer 16-byte
+// aligned.  dq, dk, dv (bh, S, 128) bfloat16, scale times the products
+// with dS.
+int flash_attention_train_bwd_dot(const void* o, const void* dout,
+                                  float* dvec, long long rows, void* stream) {
+  if (!aligned16(o, dout, dvec, dvec) || rows < 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_bwd_dot(o, dout, dvec, (int64_t)rows, (cudaStream_t)stream);
+}
+
+int flash_attention_train_dq(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* dvec, void* dq, int bh, int S,
+                             float scale, void* stream) {
+  if (!aligned16(q, k, v, dout) || !aligned16(lse, dvec, dq, dq) || S <= 0 ||
+      S % wgb::BN != 0 || (int64_t)(S / wgb::BN) * bh > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  return launch_bwd_dq(q, k, v, dout, lse, dvec, dq, bh, S, scale,
+                       (cudaStream_t)stream);
+}
+
+int flash_attention_train_dkdv(const void* q, const void* k, const void* v,
+                               const void* dout, const float* lse,
+                               const float* dvec, void* dk, void* dv, int bh,
+                               int S, float scale, void* stream) {
+  if (!aligned16(q, k, v, dout) || !aligned16(lse, dvec, dk, dv) || S <= 0 ||
+      S % wgb::BN != 0 || (int64_t)(S / wgb::BN) * bh > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  return launch_bwd_dkdv(q, k, v, dout, lse, dvec, dk, dv, bh, S, scale,
+                         (cudaStream_t)stream);
+}
+
+// The backward kernels' dynamic shared memory, bytes, and their ring's
+// depth.
+int flash_attention_train_bwd_smem_bytes(void) { return wgb::SMEM_BYTES; }
+int flash_attention_train_bwd_stages(void) { return wgb::STAGES; }
 
 }  // extern "C"

@@ -143,6 +143,16 @@ __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
+// a contiguous run of `bytes` bytes (a multiple of 16; both addresses
+// 16-byte aligned) from global into shared memory, counted by the barrier
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -317,6 +327,30 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[60],
         HOPPER_D4("+f", d, 56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TRANS_B));
+}
+
+// D (64 x 64, float32) (+)= A (64 x 16) B (16 x 64), both operands by
+// shared-memory descriptor (32 floats a thread): the backward of flash
+// attention's score-shaped products over 64-row tiles
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HOPPER_R32
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : HOPPER_D32("+f", d, 0)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_set(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HOPPER_R32
+      "}, %32, %33, 0, 1, 1, 0, %34;\n"
+      : HOPPER_D32("=f", d, 0)
+      : "l"(da), "l"(db), "n"(TRANS_B));
 }
 
 #undef HOPPER_D4

@@ -11,6 +11,11 @@ einsum upcasts its operands first, so bf16 inputs give the same numbers.
 ``impl="flash_pallas"`` (and ``"flash_pallas_interpret"``, the same thing
 here) sends attention through ``kernels.flash_attention``: the
 hand-written kernel for CUDA tensors, its plain version for CPU tensors.
+The chunked impl (training's) sends a call whose input qualifies
+(``flash_train_applies``: CUDA, bf16, head dims 128, causal, no window
+that cuts, S == T a multiple of 128) to the training flash kernel, which
+has a backward; every other call runs ``chunked_attention`` as the
+reference does.
 
 MLA (``init_mla``/``mla_block``) prefills and trains through ``_attend``
 at Dq = dn + dr != Dv, and decodes in the absorbed form over its
@@ -219,7 +224,37 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.movedim(1, 2).to(q.dtype)
 
 
+# chunked-route attention calls on CUDA tensors that did not qualify for
+# the training flash kernels (``_attend`` counts them; zero it by hand)
+CHUNKED_CUDA_CALLS = 0
+
+
+def flash_train_applies(q, k, v, *, causal: bool, window: int,
+                        q_offset: int = 0) -> bool:
+    """Whether a chunked-route call over q (B, S, H, Dq), k/v (B, T, KV,
+    Dq/Dv) takes ``flash_attention_train``: decided from the input alone
+    -- CUDA tensors in bf16, Dq == Dv == 128, causal, no window short of T,
+    no query offset, S == T and a multiple of the kernel's tile."""
+    s, t = q.shape[1], k.shape[1]
+    return (all(x.is_cuda and x.dtype == torch.bfloat16 for x in (q, k, v))
+            and q.shape[-1] == v.shape[-1] == _fa.TRAIN_HEAD_DIM
+            and causal and (window == 0 or window >= t)
+            and q_offset == 0 and s == t and s % _fa.TRAIN_TILE == 0)
+
+
+def _flash_train(q, k, v) -> torch.Tensor:
+    """Causal attention through the training kernel: q scaled in its dtype
+    first (as ``chunked_attention`` scales it), k and v expanded to q's
+    heads, (B, S, H, D) -> (B*H, S, D) and back."""
+    b, s, h, d = q.shape
+    qh, kh, vh = (x.movedim(2, 1).reshape(b * h, s, d).contiguous()
+                  for x in (_scaled(q, d), _expand_kv(k, h), _expand_kv(v, h)))
+    out = _fa.flash_attention_train(qh, kh, vh, scale=1.0)
+    return out.reshape(b, h, s, d).movedim(1, 2)
+
+
 def _attend(q, k, v, *, causal, window, impl, chunk, q_offset=0):
+    global CHUNKED_CUDA_CALLS
     if pspec.is_dtensor(q):
         return _attend_on_mesh(q, k, v, causal=causal, window=window,
                                impl=impl, chunk=chunk, q_offset=q_offset)
@@ -236,6 +271,11 @@ def _attend(q, k, v, *, causal, window, impl, chunk, q_offset=0):
         vh = v.movedim(2, 1).reshape(b * kv, t, dv).contiguous()
         out = _fa.flash_attention(qh, kh, vh, causal=causal, window=window)
         return out.reshape(b, h, s, dv).movedim(1, 2)
+    if flash_train_applies(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset):
+        return _flash_train(q, k, v)
+    if q.is_cuda:
+        CHUNKED_CUDA_CALLS += 1
     return chunked_attention(q, k, v, causal=causal, window=window,
                              chunk=chunk, q_offset=q_offset)
 

@@ -27,10 +27,12 @@ rematerialisation: each group of ``cfg.remat_group`` pattern-period
 repeats runs under ``torch.utils.checkpoint`` (non-reentrant), which
 saves the group's input and nothing inside it, and the backward recomputes
 the group (``remat=False``: plain autograd).  Otherwise the pass runs under
-``torch.inference_mode``.  The hand-written kernels have no backward (nor
-have the reference's Pallas kernels): a recorded pass on CUDA tensors with
-the kernel impls raises; on the CPU their plain versions are
-differentiable.
+``torch.inference_mode``.  The chunked impls' attention takes the training
+flash kernels, which have a backward, where its input qualifies (CUDA,
+bf16, head dims 128, causal: ``layers.flash_train_applies``).  The kernel
+impls' prefill kernels (``flash_pallas``, ``pallas``) have no backward
+(nor have the reference's Pallas kernels): a recorded pass on CUDA tensors
+with them raises; on the CPU their plain versions are differentiable.
 
 Weights are cast to the compute dtype inside the pass, keeping the
 numerics-critical leaves (``_F32_LEAVES``) in float32, as ``cast_tree``
@@ -482,10 +484,12 @@ def forward_with_aux(params: LM, cfg: ModelConfig, tokens,
         for kind in set(cfg.layer_kinds()):
             if used[kind] in _KERNEL_IMPLS[kind]:
                 raise NotImplementedError(
-                    f"the {used[kind]!r} kernel has no backward (nor has the "
-                    f"reference's Pallas kernel): a pass recorded by "
-                    f"autograd takes the chunked impls (run scoring under "
-                    f"torch.no_grad or torch.inference_mode)")
+                    f"the {used[kind]!r} kernels have no backward (nor has "
+                    f"the reference's Pallas kernel): a pass recorded by "
+                    f"autograd takes the chunked impls, whose attention "
+                    f"runs the training flash kernels where they apply "
+                    f"(run scoring under torch.no_grad or "
+                    f"torch.inference_mode)")
     group = None
     if remat:
         group = max(1, cfg.remat_group)

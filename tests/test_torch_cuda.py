@@ -1353,3 +1353,146 @@ def test_sharded_train_step_on_card_matches_plain(card, exact_f32):
                 assert torch.equal(q.full_tensor(), p), name
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# training attention: train_fwd, train_dq, train_dkdv
+# ---------------------------------------------------------------------------
+
+
+def _train_inputs(card, bh, s, seed):
+    """bf16 q, k, v and dO (BH, S, 128) from a seed."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(bh, s, 128))
+                                  .astype(np.float32))
+                 .to(torch.bfloat16).to(card) for _ in range(4))
+
+
+def _within_bf16(got, want, what):
+    """Within 2^-6 of the largest element (four bf16 units in the last
+    place there): the kernels and the plain version round P and dS to bf16
+    alike, and differ in the exponentials' approximation and the order of
+    float32 sums."""
+    got, want = got.detach().float(), want.detach().float()
+    err = float((got - want).abs().max())
+    top = float(want.abs().max())
+    assert err <= 2.0 ** -6 * top, f"{what}: max |err| {err:.3e} of {top:.3e}"
+
+
+@pytest.mark.parametrize("bh,s,chunk", [
+    pytest.param(4, 256, 4, id="small"),
+    pytest.param(6, 384, 6, id="three-tiles"),
+    pytest.param(64, 4096, 8, id="olmo-1b-layer"),   # B 4 x 16 heads
+])
+def test_train_flash_kernels_match_plain(card, exact_f32, bh, s, chunk):
+    """o (within ``bf16_error_bound``), the log-sum-exp, dq, dk and dv of
+    the three kernels against ``flash_attention_train_torch`` and
+    ``flash_attention_train_backward_torch`` on the same inputs (the plain
+    versions run ``chunk`` heads at a time); one launch of each kernel."""
+    q, k, v, do = _train_inputs(card, bh, s, seed=bh + s)
+    scale = 128 ** -0.5
+    before = dict(FA.VARIANT_LAUNCHES)
+    o, lse = FA._train_forward(q, k, v, scale)
+    dq, dk, dv = FA._train_backward(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    ran = {n: FA.VARIANT_LAUNCHES[n] - before[n] for n in FA.VARIANTS}
+    assert ran == {n: int(n in ("train_fwd", "train_dq", "train_dkdv"))
+                   for n in FA.VARIANTS}
+    for h in range(0, bh, chunk):
+        sl = slice(h, h + chunk)
+        po, plse = FA.flash_attention_train_torch(q[sl], k[sl], v[sl],
+                                                  scale=scale)
+        bound = FA.bf16_error_bound(q[sl], k[sl], v[sl], causal=True)
+        assert bool(((o[sl].float() - po.float()).abs() <= bound).all())
+        torch.testing.assert_close(lse[sl], plse, rtol=1e-5, atol=1e-5)
+        want = FA.flash_attention_train_backward_torch(
+            q[sl], k[sl], v[sl], o[sl], lse[sl], do[sl], scale=scale)
+        for name, got, w in zip(("dq", "dk", "dv"), (dq[sl], dk[sl],
+                                                    dv[sl]), want):
+            _within_bf16(got, w, f"{name}, heads {h}..")
+
+
+def test_train_flash_gqa_group_matches_dense_autograd(card, exact_f32):
+    """jamba's group (32 query heads over 8 KV heads) at a small S through
+    ``layers._flash_train`` (k and v expanded, the groups' gradients summed
+    by ``repeat_interleave``'s backward) against autograd of
+    ``dense_attention`` in float32 on the same bf16 inputs."""
+    from repro_torch.models import layers as L
+    rng = np.random.default_rng(32)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(1, 512, h, 128))
+                                   .astype(np.float32))
+                  .to(torch.bfloat16).to(card)
+                  for h in (32, 8, 8, 32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    assert L.flash_train_applies(*leaves, causal=True, window=0)
+    before = dict(FA.VARIANT_LAUNCHES)
+    out = L._flash_train(*leaves)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert {n: FA.VARIANT_LAUNCHES[n] - before[n]
+            for n in ("train_fwd", "train_dq", "train_dkdv")} == {
+        "train_fwd": 1, "train_dq": 1, "train_dkdv": 1}
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = L.dense_attention(*ref, causal=True)
+    want.backward(g.float())
+    _within_bf16(out, want, "o")
+    for name, a, b in zip("qkv", leaves, ref):
+        _within_bf16(a.grad, b.grad, f"d{name}")
+
+
+@pytest.mark.parametrize("bh,s", [(8, 1024), (64, 4096)])
+def test_train_flash_backward_is_bit_equal_run_to_run(card, bh, s):
+    """No atomics: two backward passes on the same inputs give the same
+    bits; the forward's o is the ``wgmma`` instance's, bit for bit (the
+    training instance only adds the log-sum-exp's stores)."""
+    q, k, v, do = _train_inputs(card, bh, s, seed=7)
+    scale = 128 ** -0.5
+    o, lse = FA._train_forward(q, k, v, scale)
+    first = FA._train_backward(q, k, v, o, lse, do, scale)
+    second = FA._train_backward(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert torch.equal(o, FA.flash_attention(q, k, v, causal=True))
+
+
+def test_train_flash_entries_refuse_what_they_cannot_take(card):
+    """S not a multiple of 128, other head dims, float32: the wrapper
+    raises before any launch; the backward's ring fits the shared memory
+    the library reports."""
+    lib = FA._build.load(FA.SOURCE, FA._bind)
+    assert lib.flash_attention_train_bwd_smem_bytes() <= 232448
+    assert lib.flash_attention_train_bwd_stages() >= 2
+    q = torch.zeros((2, 200, 128), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        FA.flash_attention_train(q, q, q)
+    q = torch.zeros((2, 256, 96), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="D = 128"):
+        FA.flash_attention_train(q, q, q)
+    q = torch.zeros((2, 256, 128), device=card)
+    with pytest.raises(TypeError, match="bf16"):
+        FA.flash_attention_train(q, q, q)
+
+
+def test_train_flash_takes_strided_inputs(card):
+    """q, k, v as strided views (every row 256 wide, the first 128 taken):
+    the function works on aligned contiguous copies, saved for the
+    backward, and gives the contiguous inputs' o and gradients bit for
+    bit."""
+    rng = np.random.default_rng(21)
+    wide = [torch.from_numpy(rng.normal(size=(8, 256, 256))
+                             .astype(np.float32)).to(torch.bfloat16).to(card)
+            .requires_grad_() for _ in range(3)]
+    views = [t[..., :128] for t in wide]
+    assert not views[0].is_contiguous()
+    flat = [t.detach().contiguous().requires_grad_() for t in views]
+    g = torch.from_numpy(rng.normal(size=(8, 256, 128)).astype(
+        np.float32)).to(torch.bfloat16).to(card)
+    out = FA.flash_attention_train(*views)
+    want = FA.flash_attention_train(*flat)
+    out.backward(g)
+    want.backward(g)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    for a, b in zip(wide, flat):
+        assert torch.equal(a.grad[..., :128], b.grad)
+        assert not bool(a.grad[..., 128:].any())

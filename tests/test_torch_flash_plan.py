@@ -167,14 +167,16 @@ def test_cpu_tensors_count_a_plain_call_and_no_variant_launch():
 
 
 def test_every_variant_has_an_entry_point():
-    """The planned kernels, and the private mma.sync yardstick."""
-    names = set(FA.ENTRY_POINTS.values())
+    """The planned kernels, the private mma.sync yardstick and the
+    training kernels."""
+    names = set(FA.ENTRY_POINTS.values()) | set(
+        FA.TRAIN_ENTRY_POINTS.values())
     for name in names:
         assert f"int {name}(" in FA.SOURCE.read_text()
     assert set(FA.WGMMA_INSTANCES.values()) | {"mma_sync"} <= set(
         FA.ENTRY_POINTS)
     assert set(FA.VARIANTS) == set(FA.WGMMA_INSTANCES.values()) | {
-        "cuda_core", "mma_sync"}
+        "cuda_core", "mma_sync"} | set(FA.TRAIN_ENTRY_POINTS)
     assert {("cuda_core", t) for t in FA.DTYPES} <= set(FA.ENTRY_POINTS)
 
 

@@ -42,6 +42,17 @@ The ``wgmma_120`` and ``wgmma_96`` instances are timed the same way at
 h2o-danube3-4b's layer shape (32 heads over 8, S 8192, window 4096) and
 phi3-vision-4b's (B 4 x 32 heads, S 2048), beside ``cuda_core`` and SDPA.
 
+``--ds-split`` builds only the real source and a copy whose training
+backward kernels split dS into a bf16 high part and a bf16 low part (dS -
+bf16(dS)) and run one more product with the low part (``train_dq``: dQ +=
+dS_lo k; ``train_dkdv``: dK += dS_lo^T q), so that dQ and dK see dS to
+about float32's precision, as the chunked route kept it.  At olmo-1b's
+layer shape (B 4 x 16 heads, S 4096, D 128, bf16, causal) it times both
+kernels of both builds in turns and prints what the split would add to a
+training step (olmo-1b's 16 layers run each once a step), and how far
+each build's dq and dk lie from a float32 backward (no rounding of P or
+dS) on 8 heads.
+
 ``--against`` builds another version of the source (an unpacked older
 commit's, say) beside the real one, checks that the D 128 instance gives
 the same bits at the two shapes and times the two in turns.  With
@@ -81,7 +92,7 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 OUT = ROOT / "build" / "flash_breakdown"
 # the kernel at D 128 (its mangled name; the source instantiates it at
 # (96, 64) too)
-KERNEL = "flash_attention_wgmma_kernelILi128ELi128E"
+KERNEL = "flash_attention_wgmma_kernelILi128ELi128ELb0E"
 
 NO_PINGPONG = ("  auto my_turn = [&]() { named_bar_sync(PING + c, 256); };\n"
                "  auto your_turn = [&]() { named_bar_arrive(PING + 1 - c, "
@@ -139,6 +150,49 @@ PV_BOXES = [("  float o[DV / 2], s_acc[64];\n",
              "    for (int i = 0; i < C::V_BOXES * 32; ++i) o[i] = 0.f;\n"),
             ("      for (int j = 0; j < DV / 8; ++j) {\n",
              "      for (int j = 0; j < C::V_BOXES * 8; ++j) {\n")]
+# the training backward with dS split into bf16 high and low parts: the
+# low part's product after each dS product (``--ds-split``)
+PACK_LO = ("// a warpgroup's 64 x 128 float32 accumulator times `scale`, as "
+           "bf16 rows\n",
+           """// the bf16 remainder s - bf16(s) of a 64-column float32 tile, as the
+// A fragments of 4 k steps
+__device__ __forceinline__ void pack_lo(uint32_t (&a)[4][4],
+                                        const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x = s[8 * kk + 2 * r], y = s[8 * kk + 2 * r + 1];
+      a[kk][r] = pack_bf16(x - __bfloat162float(__float2bfloat16_rn(x)),
+                           y - __bfloat162float(__float2bfloat16_rn(y)));
+    }
+}
+
+// a warpgroup's 64 x 128 float32 accumulator times `scale`, as bf16 rows
+""")
+SPLIT_DKDV = ("""    pack_a(da, dp_acc);
+    wgmma_fence();
+    issue_acc64(dv_acc, pa, dos(s));   // dV += P^T dO
+    issue_acc64(dk_acc, da, qs(s));    // dK += dS^T q
+""", """    pack_a(da, dp_acc);
+    uint32_t dl[4][4];
+    pack_lo(dl, dp_acc);
+    wgmma_fence();
+    issue_acc64(dv_acc, pa, dos(s));   // dV += P^T dO
+    issue_acc64(dk_acc, da, qs(s));    // dK += dS^T q
+    issue_acc64(dk_acc, dl, qs(s));
+""")
+SPLIT_DQ = ("""    pack_a(da, dp_acc);
+    wgmma_fence();
+    issue_acc64(dq_acc, da, ks(s));    // dQ += dS k
+""", """    pack_a(da, dp_acc);
+    uint32_t dl[4][4];
+    pack_lo(dl, dp_acc);
+    wgmma_fence();
+    issue_acc64(dq_acc, da, ks(s));    // dQ += dS k
+    issue_acc64(dq_acc, dl, ks(s));
+""")
+DS_SPLIT = {"ds_split": [PACK_LO, SPLIT_DKDV, SPLIT_DQ]}
 CUTS = {
     "overlap": [OVERLAP],
     "no_pingpong": [NO_PINGPONG],
@@ -152,21 +206,21 @@ CUTS = {
 }
 # the instances' mangled names (the source instantiates D 128, 96 / 64,
 # 120 / 120 and 96 / 96)
-DV_KERNEL = "flash_attention_wgmma_kernelILi96ELi64E"
-NEW_KERNELS = ("flash_attention_wgmma_kernelILi120ELi120E",
-               "flash_attention_wgmma_kernelILi96ELi96E")
+DV_KERNEL = "flash_attention_wgmma_kernelILi96ELi64ELb0E"
+NEW_KERNELS = ("flash_attention_wgmma_kernelILi120ELi120ELb0E",
+               "flash_attention_wgmma_kernelILi96ELi96ELb0E")
 
 
-def build_cuts(against=None, cuts=True) -> dict:
-    """{name: (library, path)} for the real source, each cut copy (unless
-    ``cuts`` is false) and, if given, the ``against`` source (as
+def build_cuts(against=None, cuts=CUTS) -> dict:
+    """{name: (library, path)} for the real source, each copy of ``cuts``
+    (name -> its substitutions) and, if given, the ``against`` source (as
     ``"against"``), built in parallel."""
     src = FA.SOURCE.read_text()
     OUT.mkdir(parents=True, exist_ok=True)
     paths = {"full": FA.SOURCE}
     if against is not None:
         paths["against"] = Path(against).resolve()
-    for name, subs in (CUTS.items() if cuts else ()):
+    for name, subs in cuts.items():
         text = src
         for old, new in subs:
             if text.count(old) != 1:
@@ -367,6 +421,73 @@ def against_parent(libs, gen, dev) -> None:
               f"{times[2]:.4f}", flush=True)
 
 
+def ds_split(libs, dev) -> None:
+    """The training backward kernels of the real source and of the
+    ``ds_split`` copy at olmo-1b's layer shape: device times in turns
+    (full, split, split, full), what the split adds to a step, and each
+    build's dq and dk against a float32 backward on 8 heads."""
+    for name, (_, so) in libs.items():
+        log = so.with_suffix(".log").read_text()
+        for kern in ("bwd_dq_kernel", "bwd_dkdv_kernel"):
+            print(f"{name} {kern}: {cs.ptxas_summary(log, kern)}",
+                  flush=True)
+    bh, s, d, layers = 64, 4096, 128, 16
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=dev)
+                   .bfloat16() for _ in range(4))
+    scale = d ** -0.5
+    o, lse = FA._train_forward(q, k, v, scale)
+    dvec = torch.empty((bh, s), dtype=torch.float32, device=dev)
+    libs["full"][0].flash_attention_train_bwd_dot(
+        o.data_ptr(), do.data_ptr(), dvec.data_ptr(), bh * s,
+        torch.cuda.current_stream().cuda_stream)
+    ins = [t.data_ptr() for t in (q, k, v, do, lse, dvec)]
+    outs = {n: [torch.empty_like(q) for _ in range(3)] for n in libs}
+
+    # on the stream current at the call (graph_ms captures on its own)
+    def dq_call(n):
+        return lambda: libs[n][0].flash_attention_train_dq(
+            *ins, outs[n][0].data_ptr(), bh, s, scale,
+            torch.cuda.current_stream().cuda_stream)
+
+    def dkdv_call(n):
+        return lambda: libs[n][0].flash_attention_train_dkdv(
+            *ins, outs[n][1].data_ptr(), outs[n][2].data_ptr(), bh, s,
+            scale, torch.cuda.current_stream().cuda_stream)
+
+    times = {}
+    for kern, call in (("train_dq", dq_call), ("train_dkdv", dkdv_call)):
+        runs = [cs.graph_ms([call(n)], 20)
+                for n in ("full", "ds_split", "ds_split", "full")]
+        times[kern] = ((runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2)
+        print(f"{kern} at ({bh}, {s}, {d}) bf16 causal, device ms in turns "
+              f"(full, split, split, full): "
+              + " ".join(f"{r:.4f}" for r in runs), flush=True)
+    for n in libs:
+        dq_call(n)()
+        dkdv_call(n)()
+    torch.cuda.synchronize()
+    extra = sum(split - full for full, split in times.values())
+    print(f"the split adds {extra:.4f} ms a layer's backward, "
+          f"{layers * extra:.2f} ms an olmo-1b step of {layers} layers "
+          f"(dq {times['train_dq'][0]:.4f} -> {times['train_dq'][1]:.4f}, "
+          f"dkdv {times['train_dkdv'][0]:.4f} -> "
+          f"{times['train_dkdv'][1]:.4f})", flush=True)
+    sl = slice(0, 8)
+    want = FA.flash_attention_train_backward_torch(
+        *(t[sl].float() for t in (q, k, v, o)), lse[sl], do[sl].float(),
+        scale=scale)
+    for n in libs:
+        errs = []
+        for name, got, w in zip(("dq", "dk", "dv"),
+                                (outs[n][0], outs[n][1], outs[n][2]), want):
+            err = float((got[sl].float() - w).abs().max())
+            errs.append(f"{name} {err:.3e} ({err / float(w.abs().max()):.2e}"
+                        f" of the largest)")
+        print(f"{n}: against a float32 backward, max |err| "
+              + ", ".join(errs), flush=True)
+
+
 def digests(libs, dev) -> None:
     """The SHA-256 of the D 128 and wgmma_dv instances' outputs on the
     pinned cases, from the real and the ``against`` source."""
@@ -392,11 +513,16 @@ def main() -> int:
     ap.add_argument("--against", help="another flash_attention.cu")
     ap.add_argument("--digests", action="store_true",
                     help="with --against: only the pinned outputs' digests")
+    ap.add_argument("--ds-split", action="store_true",
+                    help="only the training backward with dS split in two")
     args = ap.parse_args()
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
     if args.digests:
-        digests(build_cuts(args.against, cuts=False), dev)
+        digests(build_cuts(args.against, cuts={}), dev)
+        return 0
+    if args.ds_split:
+        ds_split(build_cuts(cuts=DS_SPLIT), dev)
         return 0
     libs = build_cuts(args.against)
     for name, (_, so) in libs.items():
