@@ -61,7 +61,12 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    33, 100, 8), the plan ``selective_scan.plan`` picks printed and checked
    against ``VARIANT_LAUNCHES`` (all three on the ring kernel), two calls
    equal bit for bit, the first port's scan kernel (``pr12``, private
-   launcher) held to the same tolerance; float32 and scan tolerances from
+   launcher) held to the same tolerance; ``selective_scan_state`` from a
+   random h0 at (4, 512, 8192, 16) (phase 8's prefill) and (1, 16384,
+   8192, 16) (jamba2-mini's request): only ``ring_state`` launches, y and
+   h_S within the scan tolerance of ``selective_scan_state_torch``, two
+   calls bit-equal, timed (a ``selective_scan_ring_state`` row of the
+   kernels line); float32 and scan tolerances from
    the reference's kernel tests, bf16 flash within ``bf16_error_bound``
    (derived from bf16 rounding); what ``-Xptxas -v`` said of the ``wgmma``
    kernel (D 128) and of the ring scan's planned instance (registers,
@@ -85,8 +90,9 @@ Phases — any failure exits non-zero; no phase is caught and passed over:
    ``init_cache``, ``lm.prefill(impl="flash_pallas")`` on a 512-token
    prompt, 32 greedy ``decode_step``s -- with the counters zeroed just
    before and read just after each (flash once -- on the ``wgmma`` kernel
-   -- and the scan 7 times per forward, on the ring kernel, no plain
-   version on the card);
+   -- and the scan 7 times per forward, on the ring kernel in scoring and
+   on the state-writing ``ring_state`` kernel in the prefill into the
+   cache, no chunked scan, no plain version on the card);
    peak memory, then one more decode step and one scoring forward
    under ``torch.profiler``, each with the port's spans (``decode``,
    ``attention``, ``mamba``, ``moe``, ...) beside the kernels;
@@ -1270,6 +1276,54 @@ def lm_kernel_phase(FA, SS, dev):
                 pr12_device_ms=old_dev_ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, max_abs_err=err))
         del x, dt, b, c, A, d, ins, out, again, want
+    # the state-writing kernel (a prefill into a cache) from a state that is
+    # not 0: phase 8's prefill shape, and jamba2-mini's 16k request
+    state_cases = []
+    for (bsz, s) in ((SCORE_B, PROMPT), (1, 16384)):
+        x = rand((bsz, s, di), scale=0.5)
+        dt = rand((bsz, s, di), scale=0.1).abs()
+        b, c = rand((bsz, s, n)), rand((bsz, s, n))
+        A = -(rand((di, n)).abs() + 0.1)
+        d = rand((di,))
+        ins = (x, dt, b, c, A, d, rand((bsz, di, n)))
+        p = SS.plan(bsz, s, di, n, SS._aligned16(x, dt))
+        label = f"selective_scan_state ({bsz}, {s}, {di}, {n})"
+        before = dict(SS.VARIANT_LAUNCHES)
+        y, h = SS.selective_scan_state(*ins)
+        y2, h2 = SS.selective_scan_state(*ins)
+        ran = {v: SS.VARIANT_LAUNCHES[v] - before[v] for v in SS.VARIANTS}
+        check(ran == {v: 2 * (v == "ring_state") for v in SS.VARIANTS},
+              f"{label}: ran {ran}, not ring_state twice")
+        check(torch.equal(y, y2) and torch.equal(h, h2),
+              f"{label}: two calls differ")
+        want_y, want_h = SS.selective_scan_state_torch(*ins)
+        err, bad = within(y, want_y, SCAN_TOL)
+        h_err, h_bad = within(h, want_h, SCAN_TOL)
+        print(f"{label} [ring_state, {p.lanes} lanes]: max |kernel - plain| "
+              f"y {err:.3e}, h_S {h_err:.3e}; {bad} / {h_bad} elements "
+              f"outside atol/rtol {SCAN_TOL}; two calls bit for bit equal",
+              flush=True)
+        check(bad == 0 and h_bad == 0,
+              f"{label}: {bad} y and {h_bad} h_S elements outside "
+              f"{SCAN_TOL}, max |err| {err:.3e} / {h_err:.3e}")
+        ms = cuda_ms(lambda: SS.selective_scan_state(*ins), reps=10)
+        dev_ms = graph_ms([lambda: SS.selective_scan_state(*ins)], 10)
+        plain_ms = cuda_ms(lambda: SS.selective_scan_state_torch(*ins),
+                           reps=1)
+        bms, by = scan_bound(x, b)
+        print(f"{label} [ring_state]: kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f}; {100 * bms / ms:.1f}% of bound {bms:.4f} ms, "
+              f"{by}); plain {plain_ms:.3f} ms", flush=True)
+        state_cases.append(dict(
+            shape=[bsz, s, di, n], plan=["ring_state", p.lanes],
+            ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, max_abs_err=max(err, h_err)))
+        del x, dt, b, c, A, d, ins, y, h, y2, h2, want_y, want_h
+    rows["selective_scan_ring_state"] = dict(
+        state_cases[-1], dtype="float32", library_ms=None,
+        variant="ring_state", cases=state_cases,
+        source="src/repro_torch/csrc/selective_scan.cu",
+        replaces="src/repro/models/mamba.py:178")
     kern = (f"selective_scan_ring_kernelILi{cases[0]['plan'][1]}ELi"
             f"{SS.padded_states(n)}E")
     print(f"selective_scan ring kernel at the path shape ({kern}), nvcc "
@@ -1284,12 +1338,24 @@ def lm_kernel_phase(FA, SS, dev):
 
 
 def lm_counts(FA, SS) -> dict:
+    """Launches since the counters were last zeroed (``reset_lm_counts``);
+    ``chunked_scan``: the Mamba blocks that took the chunked scan."""
+    from repro_torch.models import mamba
     return {"flash_attention": FA.LAUNCHES["flash_attention"],
             "flash_wgmma": FA.VARIANT_LAUNCHES["wgmma"],
             "selective_scan": SS.LAUNCHES["selective_scan"],
             "scan_ring": SS.VARIANT_LAUNCHES["ring"],
+            "scan_ring_state": SS.VARIANT_LAUNCHES["ring_state"],
+            "chunked_scan": mamba.CHUNKED_SCAN_CALLS,
             "plain": FA.PLAIN_CALLS["flash_attention"]
             + SS.PLAIN_CALLS["selective_scan"]}
+
+
+def reset_lm_counts(FA, SS) -> None:
+    from repro_torch.models import mamba
+    FA.reset_counts()
+    SS.reset_counts()
+    mamba.CHUNKED_SCAN_CALLS = 0
 
 
 def check_forward_counts(counts: dict, what: str, wgmma: int) -> None:
@@ -1298,7 +1364,8 @@ def check_forward_counts(counts: dict, what: str, wgmma: int) -> None:
     all on the ring kernel."""
     check(counts == {"flash_attention": 1, "flash_wgmma": wgmma,
                      "selective_scan": LM_LAYERS - 1,
-                     "scan_ring": LM_LAYERS - 1, "plain": 0},
+                     "scan_ring": LM_LAYERS - 1, "scan_ring_state": 0,
+                     "chunked_scan": 0, "plain": 0},
           f"{what}: launches {counts}, expected flash attention once "
           f"({wgmma} times the wgmma kernel), the scan {LM_LAYERS - 1} times "
           f"on the ring kernel and no plain version")
@@ -1398,8 +1465,7 @@ def jamba_phases(FA, SS, dev) -> dict:
           f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB)", flush=True)
     toks = torch.randint(0, base.vocab_size, (F32_B, F32_S), generator=gen,
                          device=dev)
-    FA.reset_counts()
-    SS.reset_counts()
+    reset_lm_counts(FA, SS)
     t = time.perf_counter()
     out_k = lm.forward(params, replace(cfg32, **kern), toks)
     torch.cuda.synchronize()
@@ -1441,8 +1507,7 @@ def jamba_phases(FA, SS, dev) -> dict:
     batch = {"tokens": torch.randint(0, base.vocab_size, (SCORE_B, SCORE_S),
                                      generator=gen, device=dev)}
     torch.cuda.reset_peak_memory_stats()
-    FA.reset_counts()
-    SS.reset_counts()
+    reset_lm_counts(FA, SS)
     t = time.perf_counter()
     logits = model.logits(params, batch)
     torch.cuda.synchronize()
@@ -1461,8 +1526,7 @@ def jamba_phases(FA, SS, dev) -> dict:
           f"launches {score_counts}", flush=True)
 
     prompt = batch["tokens"][:, :PROMPT]
-    FA.reset_counts()
-    SS.reset_counts()
+    reset_lm_counts(FA, SS)
     t = time.perf_counter()
     # one slot more than the timed steps fill: the profiled step's
     cache = model.init_cache(SCORE_B, PROMPT + GEN + 1, device=dev)
@@ -1480,10 +1544,14 @@ def jamba_phases(FA, SS, dev) -> dict:
     decode_s = time.perf_counter() - t
     gen_counts = lm_counts(FA, SS)
     check(gen_counts == {"flash_attention": 1, "flash_wgmma": 1,
-                         "selective_scan": 0, "scan_ring": 0, "plain": 0},
+                         "selective_scan": LM_LAYERS - 1, "scan_ring": 0,
+                         "scan_ring_state": LM_LAYERS - 1,
+                         "chunked_scan": 0, "plain": 0},
           f"generation: launches {gen_counts}, expected flash attention "
-          f"once, through the wgmma kernel (prefill; the scan runs chunked "
-          f"under a cache, decode has no kernel) and no plain version")
+          f"once, through the wgmma kernel, and the scan {LM_LAYERS - 1} "
+          f"times on the state-writing ring kernel (the prefill into the "
+          f"cache; decode has no kernel), no chunked scan and no plain "
+          f"version")
     out = torch.cat(gen_toks, dim=1)
     check(out.shape == (SCORE_B, GEN + 1) and bool(torch.isfinite(lg).all())
           and int(out.min()) >= 0 and int(out.max()) < base.vocab_size,
@@ -1498,8 +1566,11 @@ def jamba_phases(FA, SS, dev) -> dict:
     profile_call(lambda: model.logits(params, batch),
                  f"jamba scoring forward B={SCORE_B} S={SCORE_S}",
                  watch=("selective_scan", "flash_attention"))
-    return {k: score_counts[k] + gen_counts[k]
-            for k in ("flash_attention", "selective_scan")}
+    out = {k: score_counts[k] + gen_counts[k]
+           for k in ("flash_attention", "selective_scan")}
+    out["selective_scan_ring_state"] = (score_counts["scan_ring_state"]
+                                        + gen_counts["scan_ring_state"])
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -73,6 +73,14 @@
 //
 // Ragged channel counts are masked (TMA zero-fills loads and clips
 // stores); state slots beyond N hold zeros and add nothing.
+//
+// ring_state -- the ring kernel with the state: each lane starts its
+// states from h0 (batch, D, N) instead of zeros and writes them to hS
+// after the last step, so that a prefill leaves the state a decode step
+// continues from.  Steps past S in the last tile read dt = x = 0 and B =
+// 0 (zero-filled), so they leave h as it is (2^0 = 1 exactly): hS is
+// h_S.  The stateless instances compile as before (STATE is a template
+// argument), so their results keep their bits.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -276,7 +284,7 @@ __device__ __forceinline__ float dot_sum(const float (&p)[DOT_P<SPL>]) {
   else return p[0];
 }
 
-template <int L, int NP>
+template <int L, int NP, bool STATE>
 __global__ void __launch_bounds__(THREADS, (Cfg<L, NP>::MIN_BLOCKS))
 selective_scan_ring_kernel(const __grid_constant__ CUtensorMap map_x,
                            const __grid_constant__ CUtensorMap map_dt,
@@ -285,7 +293,9 @@ selective_scan_ring_kernel(const __grid_constant__ CUtensorMap map_x,
                            const float* __restrict__ Cm,
                            const float* __restrict__ A,
                            const float* __restrict__ Dskip,
-                           float* __restrict__ y, int S, int D, int N) {
+                           float* __restrict__ y,
+                           const float* __restrict__ h0,
+                           float* __restrict__ hS, int S, int D, int N) {
   using C = Cfg<L, NP>;
   constexpr int SPL = C::SPL, CB = C::CB, CW = C::CW, STAGES = C::STAGES;
   constexpr int DP = DOT_P<SPL>;              // partial dots
@@ -348,11 +358,15 @@ selective_scan_ring_kernel(const __grid_constant__ CUtensorMap map_x,
   const int ch = c0 + g;
   const bool live = ch < D;
   float a2[SPL], h[SPL];
+  const int64_t hrow = ((int64_t)b * D + ch) * N;   // (b, ch) in h0 and hS
 #pragma unroll
   for (int j = 0; j < SPL; ++j) {
     const int n = k * SPL + j;
     a2[j] = (live && n < N) ? A[(int64_t)ch * N + n] * LOG2E : 0.f;
-    h[j] = 0.f;
+    if constexpr (STATE)
+      h[j] = (live && n < N) ? h0[hrow + n] : 0.f;
+    else
+      h[j] = 0.f;
   }
   const float dskip = live ? Dskip[ch] : 0.f;
   float* ybuf = (float*)(sbase + C::Y_OFF) + warp * 2 * (T * CW);
@@ -417,6 +431,13 @@ selective_scan_ring_kernel(const __grid_constant__ CUtensorMap map_x,
       tma_store_commit();
     }
   }
+  if constexpr (STATE) {
+#pragma unroll
+    for (int j = 0; j < SPL; ++j) {
+      const int n = k * SPL + j;
+      if (live && n < N) hS[hrow + n] = h[j];
+    }
+  }
   if (lane == 0) tma_store_wait_read<0>();
 }
 
@@ -439,10 +460,10 @@ bool encode_rows(CUtensorMap* map, const void* ptr, int batch, int S, int D,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int L, int NP>
+template <int L, int NP, bool STATE>
 int launch(const float* x, const float* dt, const float* Bm, const float* Cm,
-           const float* A, const float* Dskip, float* y, int batch, int S,
-           int D, int N, cudaStream_t stream) {
+           const float* A, const float* Dskip, float* y, const float* h0,
+           float* hS, int batch, int S, int D, int N, cudaStream_t stream) {
   using C = Cfg<L, NP>;
   CUtensorMap mx, mdt, my;
   if (!encode_rows(&mx, x, batch, S, D, C::CB) ||
@@ -450,17 +471,18 @@ int launch(const float* x, const float* dt, const float* Bm, const float* Cm,
       !encode_rows(&my, y, batch, S, D, C::CW))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      selective_scan_ring_kernel<L, NP>,
+      selective_scan_ring_kernel<L, NP, STATE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   // the largest shared-memory carve-out, so that MIN_BLOCKS blocks fit
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(selective_scan_ring_kernel<L, NP>,
+    e = cudaFuncSetAttribute(selective_scan_ring_kernel<L, NP, STATE>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((D + C::CB - 1) / C::CB, batch);
-  selective_scan_ring_kernel<L, NP><<<grid, THREADS, C::SMEM, stream>>>(
-      mx, mdt, my, Bm, Cm, A, Dskip, y, S, D, N);
+  selective_scan_ring_kernel<L, NP, STATE>
+      <<<grid, THREADS, C::SMEM, stream>>>(mx, mdt, my, Bm, Cm, A, Dskip, y,
+                                           h0, hS, S, D, N);
   return (int)cudaGetLastError();
 }
 
@@ -469,15 +491,33 @@ int launch(const float* x, const float* dt, const float* Bm, const float* Cm,
   X(1, 4) X(2, 4) X(4, 4) X(1, 8) X(2, 8) X(4, 8) X(8, 8) X(1, 16)         \
       X(2, 16) X(4, 16) X(8, 16)
 
-}  // namespace ring
+// the ring kernel (with the state where STATE) at `lanes` lanes: checks
+// what the kernel takes, then launches the (lanes, padded N) instance
+template <bool STATE>
+int ring_entry(const float* x, const float* dt, const float* Bm,
+               const float* Cm, const float* A, const float* Dskip, float* y,
+               const float* h0, float* hS, int batch, int S, int D, int N,
+               int lanes, cudaStream_t stream) {
+  if (N < 1 || N > 16 || D % 4 != 0 ||
+      ((uintptr_t)x | (uintptr_t)dt | (uintptr_t)y) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int np = N <= 4 ? 4 : (N <= 8 ? 8 : 16);
+#define RING_LAUNCH(LL, NN)                                                \
+  if (lanes == LL && np == NN)                                             \
+    return launch<LL, NN, STATE>(x, dt, Bm, Cm, A, Dskip, y, h0, hS, batch, \
+                                 S, D, N, stream);
+  RING_INSTANCES(RING_LAUNCH)
+#undef RING_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
 
-int padded_states(int N) { return N <= 4 ? 4 : (N <= 8 ? 8 : 16); }
+}  // namespace ring
 
 }  // namespace
 
 extern "C" {
 
-// Both entry points: x, dt, y (batch, S, D); B, C (batch, S, N); A (D, N);
+// Every entry point: x, dt, y (batch, S, D); B, C (batch, S, N); A (D, N);
 // Dskip (D,): all float32, contiguous, on the device of `stream`.  1 <= N
 // <= 16 and batch <= 65535 (the wrapper checks).  Return
 // cudaGetLastError() after the launch, or the error that kept it from
@@ -501,17 +541,22 @@ int selective_scan_f32_ring(const float* x, const float* dt, const float* Bm,
                             const float* Cm, const float* A,
                             const float* Dskip, float* y, int batch, int S,
                             int D, int N, int lanes, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (N < 1 || N > 16 || D % 4 != 0 ||
-      ((uintptr_t)x | (uintptr_t)dt | (uintptr_t)y) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const int np = padded_states(N);
-#define RING_LAUNCH(LL, NN)                                                \
-  if (lanes == LL && np == NN)                                             \
-    return ring::launch<LL, NN>(x, dt, Bm, Cm, A, Dskip, y, batch, S, D, N, s);
-  RING_INSTANCES(RING_LAUNCH)
-#undef RING_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  return ring::ring_entry<false>(x, dt, Bm, Cm, A, Dskip, y, nullptr, nullptr,
+                                 batch, S, D, N, lanes,
+                                 (cudaStream_t)stream);
+}
+
+// the ring kernel with the state (ring_state): as selective_scan_f32_ring,
+// the states starting from h0 (batch, D, N) float32 and written to hS
+// (the same shape, another buffer) after the last step
+int selective_scan_f32_ring_state(const float* x, const float* dt,
+                                  const float* Bm, const float* Cm,
+                                  const float* A, const float* Dskip,
+                                  float* y, const float* h0, float* hS,
+                                  int batch, int S, int D, int N, int lanes,
+                                  void* stream) {
+  return ring::ring_entry<true>(x, dt, Bm, Cm, A, Dskip, y, h0, hS, batch, S,
+                                D, N, lanes, (cudaStream_t)stream);
 }
 
 // the ring kernel's dynamic shared memory in bytes for `lanes` lanes and

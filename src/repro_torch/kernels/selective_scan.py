@@ -9,7 +9,8 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/selective_scan.py:29``
     y_t = h_t . C_t + D * x_t
 
 x, dt (B, S, D); B, C (B, S, N); A (D, N); D (D,) -> y (B, S, D), all
-float32.
+float32.  ``selective_scan_state`` starts from a given state h_0 (B, D, N)
+and returns the last, h_S, beside y: a prefill into a cache.
 
 Bound on the H100: one exponential per (step, channel, state), computed
 by the special-function units at 16 per clock per SM, against one read of x
@@ -27,7 +28,10 @@ alignment alone:
   falcon-mamba's mamba layers);
 * ``"pr12"``: everything else — the first port's kernel, one thread per
   channel.  The private ``_launch(..., "pr12")`` also reaches it on
-  aligned inputs, as the yardstick timed beside the ring kernel.
+  aligned inputs, as the yardstick timed beside the ring kernel;
+* ``"ring_state"``: ``selective_scan_state``'s kernel, the ring kernel
+  reading h_0 and writing h_S (the lanes ``plan`` would take; x and dt
+  copied once where they are misaligned; D % 4 == 0).
 
 ``LAUNCHES`` counts every launch, ``VARIANT_LAUNCHES`` the launches of
 each kernel, ``PLAIN_CALLS`` the plain version's calls.
@@ -46,11 +50,12 @@ from . import _build
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "VARIANT_LAUNCHES", "VARIANTS", "Plan",
            "plan", "ring_plan", "busiest_sm_channels", "padded_states",
            "ring_smem_bytes", "reset_counts", "selective_scan",
-           "selective_scan_torch", "build"]
+           "selective_scan_torch", "selective_scan_state",
+           "selective_scan_state_torch", "build"]
 
 MAX_STATE = 16         # the largest d_state of a ported config
 
-VARIANTS = ("ring", "pr12")
+VARIANTS = ("ring", "pr12", "ring_state")
 LAUNCHES: Dict[str, int] = {"selective_scan": 0}
 VARIANT_LAUNCHES: Dict[str, int] = {v: 0 for v in VARIANTS}
 PLAIN_CALLS: Dict[str, int] = {"selective_scan": 0}
@@ -161,15 +166,17 @@ def _aligned16(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _check_shapes(x, dt, b, c, a, d) -> None:
+def _check_shapes(x, dt, b, c, a, d, h0=None) -> None:
     if x.dim() != 3:
         raise ValueError(f"selective_scan: x must be (B, S, D), got "
                          f"{tuple(x.shape)}")
     bsz, s, dm = x.shape
     n = b.shape[-1] if b.dim() == 3 else -1
     want = {"dt": (bsz, s, dm), "b": (bsz, s, n), "c": (bsz, s, n),
-            "a": (dm, n), "d": (dm,)}
+            "a": (dm, n), "d": (dm,), "h0": (bsz, dm, n)}
     got = {"dt": dt, "b": b, "c": c, "a": a, "d": d}
+    if h0 is not None:
+        got["h0"] = h0
     bad = {k: tuple(t.shape) for k, t in got.items()
            if tuple(t.shape) != want[k]}
     if n < 1 or bad:
@@ -177,23 +184,39 @@ def _check_shapes(x, dt, b, c, a, d) -> None:
                          f"c, a, d of shapes {want}; got {bad}")
 
 
-def selective_scan_torch(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
-                         c: torch.Tensor, a: torch.Tensor,
-                         d: torch.Tensor) -> torch.Tensor:
-    """The per-step recurrence of ``ref.selective_scan_ref``, in float32."""
-    _check_shapes(x, dt, b, c, a, d)
+def _plain(x, dt, b, c, a, d, h0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, h_S) of the per-step recurrence from h0 (zeros where None)."""
     x, dt, b, c, a, d = (t.float() for t in (x, dt, b, c, a, d))
     bsz, s, dm = x.shape
-    h = torch.zeros((bsz, dm, a.shape[1]), dtype=torch.float32,
-                    device=x.device)
+    h = (torch.zeros((bsz, dm, a.shape[1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
     ys = []
     for t in range(s):
         dA = torch.exp(dt[:, t, :, None] * a[None])
         h = dA * h + (dt[:, t] * x[:, t])[:, :, None] * b[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]) + d[None] * x[:, t])
     if not ys:
-        return torch.zeros_like(x)
-    return torch.stack(ys, dim=1)
+        return torch.zeros_like(x), h.clone()
+    return torch.stack(ys, dim=1), h
+
+
+def selective_scan_torch(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                         c: torch.Tensor, a: torch.Tensor,
+                         d: torch.Tensor) -> torch.Tensor:
+    """The per-step recurrence of ``ref.selective_scan_ref``, in float32."""
+    _check_shapes(x, dt, b, c, a, d)
+    return _plain(x, dt, b, c, a, d, None)[0]
+
+
+def selective_scan_state_torch(x: torch.Tensor, dt: torch.Tensor,
+                               b: torch.Tensor, c: torch.Tensor,
+                               a: torch.Tensor, d: torch.Tensor,
+                               h0: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same recurrence from the state h0 (B, D, N): (y, h_S), float32
+    (h_S a new tensor)."""
+    _check_shapes(x, dt, b, c, a, d, h0)
+    return _plain(x, dt, b, c, a, d, h0)
 
 
 def build() -> Path:
@@ -208,6 +231,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.selective_scan_f32_ring.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
                                             i, p]
     lib.selective_scan_f32_ring.restype = i
+    lib.selective_scan_f32_ring_state.argtypes = [p, p, p, p, p, p, p, p, p,
+                                                  i, i, i, i, i, p]
+    lib.selective_scan_f32_ring_state.restype = i
     lib.selective_scan_ring_smem_bytes.argtypes = [i, i]
     lib.selective_scan_ring_smem_bytes.restype = i
     lib.selective_scan_ring_steps.argtypes = []
@@ -225,7 +251,40 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     if all(t.device.type == "cpu" for t in ts):
         PLAIN_CALLS["selective_scan"] += 1
         return selective_scan_torch(*ts)
-    dev = x.device
+    _check_card(ts)
+    bsz, s, dm = x.shape
+    return _launch(x, dt, b, c, a, d,
+                   plan(bsz, s, dm, a.shape[1], _aligned16(x, dt)))
+
+
+def selective_scan_state(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                         c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                         h0: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, S, D), h_S (B, D, N)), float32, from the state h0 (B, D, N):
+    a prefill into a cache.  CUDA tensors launch the ``ring_state`` kernel
+    (D % 4 == 0, otherwise as ``selective_scan``); CPU tensors take
+    ``selective_scan_state_torch``.  h0 is read, not written."""
+    _check_shapes(x, dt, b, c, a, d, h0)
+    ts = (x, dt, b, c, a, d, h0)
+    if all(t.device.type == "cpu" for t in ts):
+        PLAIN_CALLS["selective_scan"] += 1
+        return selective_scan_state_torch(*ts)
+    _check_card(ts)
+    bsz, s, dm = x.shape
+    if dm % 4:
+        raise ValueError(f"selective_scan_state: the kernel takes D % 4 == "
+                         f"0, got D={dm}")
+    if not _aligned16(x, dt):       # TMA's alignment: one aligned copy
+        x, dt = x.clone(), dt.clone()
+    p = plan(bsz, s, dm, a.shape[1], True)
+    return _launch_state(x, dt, b, c, a, d, h0, p.lanes)
+
+
+def _check_card(ts) -> None:
+    """The kernels' conditions on CUDA tensors: one device, float32,
+    contiguous, N <= MAX_STATE, batch <= MAX_GRID_Y."""
+    dev = ts[0].device
     if dev.type != "cuda":
         raise ValueError(f"selective_scan: unsupported device {dev}")
     for t in ts:
@@ -236,14 +295,32 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError("selective_scan: expects contiguous tensors")
-    bsz, s, dm = x.shape
-    n = a.shape[1]
+    bsz, n = ts[0].shape[0], ts[4].shape[1]
     if n > MAX_STATE or bsz > MAX_GRID_Y:
         raise ValueError(f"selective_scan: the kernel takes N <= "
                          f"{MAX_STATE} and B <= {MAX_GRID_Y}, got N={n}, "
                          f"B={bsz}")
-    return _launch(x, dt, b, c, a, d,
-                   plan(bsz, s, dm, n, _aligned16(x, dt)))
+
+
+def _launch_state(x, dt, b, c, a, d, h0, lanes: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the ``ring_state`` kernel at ``lanes`` lanes on checked CUDA
+    tensors (x, dt 16-byte aligned, D % 4 == 0)."""
+    bsz, s, dm = x.shape
+    y = torch.empty_like(x)
+    h = torch.empty_like(h0)
+    if y.numel() == 0:
+        return y, h.copy_(h0)
+    lib = _build.load(SOURCE, _bind)
+    ptrs = [t.data_ptr() for t in (x, dt, b, c, a, d, y, h0, h)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.selective_scan_f32_ring_state(*ptrs, bsz, s, dm,
+                                                a.shape[1], lanes, stream)
+    _build.launch_check("selective_scan (ring_state)", err)
+    LAUNCHES["selective_scan"] += 1
+    VARIANT_LAUNCHES["ring_state"] += 1
+    return y, h
 
 
 def _launch(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,

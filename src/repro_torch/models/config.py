@@ -24,6 +24,7 @@ class AttentionConfig:
     head_dim: int = 128
     window: int = 0                      # >0: sliding-window attention (SWA)
     rope_theta: float = 10_000.0
+    rope: bool = True                    # False: no positional encoding
     # --- MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2 style) ---
     q_lora_rank: int = 0
     kv_lora_rank: int = 0
@@ -48,6 +49,15 @@ class MoEConfig:
     every: int = 1                       # MoE layer period (jamba: 2)
     router_jitter: float = 0.0
     aux_loss_coef: float = 0.01
+    renormalize: bool = True             # top-k gates divided by their sum
+    dropless: bool = False               # every (token, slot) computed, none
+                                         # dropped for capacity (jamba)
+    # the experts this layer holds (expert parallelism: the router still
+    # spans all n_experts); () holds them all
+    held_experts: Tuple[int, ...] = ()
+
+    def held(self) -> Tuple[int, ...]:
+        return self.held_experts or tuple(range(self.n_experts))
 
 
 @dataclass(frozen=True)
@@ -57,6 +67,8 @@ class SSMConfig:
     expand: int = 2
     dt_rank: int = 0                     # 0 -> ceil(d_model / 16)
     chunk: int = 256                     # scan chunk (memory/remat knob)
+    # jamba's RMSNorms with a learned gain on dt, B and C after x_proj
+    inner_norms: bool = False
 
     def d_inner(self, d_model: int) -> int:
         return self.expand * d_model
@@ -154,10 +166,12 @@ class ModelConfig:
                 n += s.dt_rank_of(d) * di + di                  # dt_proj
                 n += di * s.d_state + di                        # A_log, D
                 n += di * d                                     # out_proj
+                if s.inner_norms:
+                    n += s.dt_rank_of(d) + 2 * s.d_state        # gains
             if is_moe and self.moe is not None:
                 m = self.moe
                 n += d * m.n_experts                            # router
-                n += m.n_experts * 3 * d * m.d_expert           # routed
+                n += len(m.held()) * 3 * d * m.d_expert         # routed
                 n += m.n_shared_experts * 3 * d * m.d_expert    # shared
             else:
                 # gated (SwiGLU): gate/up/down; non-gated (gelu): up/down
@@ -177,7 +191,7 @@ class ModelConfig:
             return self.n_params()
         m = self.moe
         total = self.n_params()
-        routed_all = sum(m.n_experts * 3 * self.d_model * m.d_expert
+        routed_all = sum(len(m.held()) * 3 * self.d_model * m.d_expert
                          for f in self.moe_layers() if f)
         routed_active = sum(m.top_k * 3 * self.d_model * m.d_expert
                             for f in self.moe_layers() if f)

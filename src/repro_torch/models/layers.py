@@ -360,7 +360,8 @@ def attention_block(params: Params, x: torch.Tensor, cfg: AttentionConfig, *,
                     positions: torch.Tensor, causal: bool = True,
                     cache: Optional[Dict] = None, impl: str = "chunked",
                     chunk: int = 1024) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """GQA (optionally sliding-window) attention.
+    """GQA (optionally sliding-window) attention, with RoPE unless
+    ``cfg.rope`` is False (jamba: no positional encoding).
 
     ``cache``: {"k": (B, T, KV, D), "v": ..., "kpos": (T,) int32, "pos":
     int} for prefill and decode (x is then (B, 1, d)).  Returns (out,
@@ -372,8 +373,9 @@ def attention_block(params: Params, x: torch.Tensor, cfg: AttentionConfig, *,
     q = split_heads(x @ params["wq"], a.n_heads, a.head_dim)
     k = split_heads(x @ params["wk"], a.n_kv_heads, a.head_dim)
     v = split_heads(x @ params["wv"], a.n_kv_heads, a.head_dim)
-    q = apply_rope(q, positions, a.rope_theta)
-    k = apply_rope(k, positions, a.rope_theta)
+    if a.rope:
+        q = apply_rope(q, positions, a.rope_theta)
+        k = apply_rope(k, positions, a.rope_theta)
 
     new_cache = None
     if cache is not None:

@@ -3,16 +3,27 @@ PyTorch: the port of ``repro.models.mamba``.
 
     h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t,    y_t = C_t h_t + D x_t
 
-with diagonal A (d_inner, d_state).  Three branches, as in the reference:
+with diagonal A (d_inner, d_state).  With ``cfg.inner_norms`` (jamba),
+dt, B and C each pass an RMSNorm with a learned gain (``dt_norm``,
+``b_norm``, ``c_norm``) after ``x_proj`` and before ``dt_proj`` and the
+scan, as ``JambaMambaMixer`` has them.  Three branches:
 
 - decode (a cache and S == 1): the one-step recurrence over the cached
   (conv tail, h);
-- ``impl="pallas"`` (or ``"pallas_interpret"``, the same thing here)
-  without a cache: ``kernels.selective_scan`` — the hand-written kernel
-  for CUDA tensors, its plain version for CPU tensors;
-- otherwise (training-style passes, and every prefill): the chunked scan,
-  a sequential loop over time inside chunks of ``cfg.chunk`` steps that
-  carries h from chunk to chunk.
+- ``impl="pallas"`` (or ``"pallas_interpret"``, the same thing here):
+  ``kernels.selective_scan`` — the hand-written kernel for CUDA tensors,
+  its plain version for CPU tensors.  Under a cache (a prefill) it is
+  ``selective_scan_state``, which starts from the cached h and returns
+  h_S; the block returns h_S and the last ``d_conv - 1`` inputs of the
+  conv as the new cache.  The launch runs inside the span
+  ``repro_torch.scan``;
+- otherwise (``impl="chunked_scan"``, the default, as the reference runs
+  every pass): the chunked scan, a sequential loop over time inside
+  chunks of ``cfg.chunk`` steps that carries h from chunk to chunk (from
+  the cached h under a cache).  ``CHUNKED_SCAN_CALLS`` counts its calls.
+
+A prefill into a cache pads the conv with zeros, as a fresh sequence,
+on both paths.
 """
 
 from __future__ import annotations
@@ -24,10 +35,15 @@ import torch.nn.functional as F
 
 from .. import pspec
 from .config import SSMConfig
-from .layers import normal
+from .layers import normal, rmsnorm
 from ..kernels import selective_scan as _ss
+from ..runtime.spans import span
 
-__all__ = ["init_mamba", "mamba_block", "init_mamba_cache"]
+__all__ = ["init_mamba", "mamba_block", "init_mamba_cache",
+           "CHUNKED_SCAN_CALLS"]
+
+# calls of the chunked scan (a plain int: zero it by hand)
+CHUNKED_SCAN_CALLS = 0
 
 
 def init_mamba(gen, cfg: SSMConfig, d_model: int, dtype: torch.dtype,
@@ -38,7 +54,7 @@ def init_mamba(gen, cfg: SSMConfig, d_model: int, dtype: torch.dtype,
     s = d_model ** -0.5
     a_log = torch.log(torch.arange(1, cfg.d_state + 1, dtype=f32,
                                    device=device))
-    return {
+    p = {
         "in_proj": normal(gen, (d_model, 2 * di), dtype, s, device),
         "conv_w": normal(gen, (cfg.d_conv, di), dtype, 0.5, device),
         "conv_b": torch.zeros((di,), dtype=dtype, device=device),
@@ -50,6 +66,11 @@ def init_mamba(gen, cfg: SSMConfig, d_model: int, dtype: torch.dtype,
         "D": torch.ones((di,), dtype=f32, device=device),
         "out_proj": normal(gen, (di, d_model), dtype, di ** -0.5, device),
     }
+    if cfg.inner_norms:
+        for name, width in (("dt_norm", dtr), ("b_norm", cfg.d_state),
+                            ("c_norm", cfg.d_state)):
+            p[name] = torch.ones((width,), dtype=dtype, device=device)
+    return p
 
 
 def init_mamba_cache(cfg: SSMConfig, d_model: int, batch: int,
@@ -80,6 +101,10 @@ def _ssm_params(params: Mapping, cfg: SSMConfig, xb: torch.Tensor):
     proj = _mm(xb, params["x_proj"])
     proj = pspec.shard(proj, "batch", *[None] * (proj.dim() - 1))
     dt, Bm, Cm = proj[..., :dtr], proj[..., dtr:dtr + n], proj[..., dtr + n:]
+    if cfg.inner_norms:
+        dt = rmsnorm(dt, params["dt_norm"])
+        Bm = rmsnorm(Bm, params["b_norm"])
+        Cm = rmsnorm(Cm, params["c_norm"])
     dt = F.softplus(_mm(dt, params["dt_proj"])
                     + params["dt_bias"].float())             # (..., di)
     return dt, Bm.float(), Cm.float()
@@ -180,16 +205,27 @@ def mamba_block(params: Mapping, x: torch.Tensor, cfg: SSMConfig, *,
              for i in range(cfg.d_conv))
     xb = F.silu(xb + params["conv_b"])
 
-    if impl in ("pallas", "pallas_interpret") and cache is None:
+    if impl in ("pallas", "pallas_interpret"):
         # the kernel path
-        dt, Bm, Cm = _ssm_params(params, cfg, xb.float())
-        y = _ss.selective_scan(
-            xb.float().contiguous(), dt.contiguous(), Bm.contiguous(),
-            Cm.contiguous(), -torch.exp(params["A_log"].float()),
-            params["D"].float())
+        xf = xb.float().contiguous()
+        del xb
+        dt, Bm, Cm = _ssm_params(params, cfg, xf)
+        args = (xf, dt.contiguous(), Bm.contiguous(), Cm.contiguous(),
+                -torch.exp(params["A_log"].float()), params["D"].float())
+        with span("repro_torch.scan"):
+            if cache is None:
+                y = _ss.selective_scan(*args)
+            else:
+                y, h = _ss.selective_scan_state(*args, cache["h"])
+        del args, xf, dt, Bm, Cm
         y = y * F.silu(z.float())
-        return y.to(x.dtype) @ params["out_proj"], None
+        out = y.to(x.dtype) @ params["out_proj"]
+        if cache is None:
+            return out, None
+        return out, {"conv": _conv_tail(xpad, s, cfg, cache), "h": h}
 
+    global CHUNKED_SCAN_CALLS
+    CHUNKED_SCAN_CALLS += 1
     chunk = min(cfg.chunk, s)
     s_pad = -(-s // chunk) * chunk                           # ragged: pad
     if s_pad != s:
@@ -209,6 +245,12 @@ def mamba_block(params: Mapping, x: torch.Tensor, cfg: SSMConfig, *,
     out = y.to(x.dtype) @ params["out_proj"]
     new_cache = None
     if cache is not None:  # prefill: final SSM state + conv tail
-        tail = xpad[:, s:s + cfg.d_conv - 1]   # last d_conv-1 real inputs
-        new_cache = {"conv": tail.to(cache["conv"].dtype), "h": h}
+        new_cache = {"conv": _conv_tail(xpad, s, cfg, cache), "h": h}
     return out, new_cache
+
+
+def _conv_tail(xpad: torch.Tensor, s: int, cfg: SSMConfig,
+               cache: Dict) -> torch.Tensor:
+    """The last d_conv - 1 real inputs of the conv, a copy (a view would
+    keep the whole padded input alive in the cache)."""
+    return xpad[:, s:s + cfg.d_conv - 1].to(cache["conv"].dtype, copy=True)

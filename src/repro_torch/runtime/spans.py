@@ -19,7 +19,9 @@ activities whose runtime call it holds (their correlation ids).
 
 The port's spans are named ``repro_torch.<part>``: ``prefill``,
 ``decode``, ``embed``, ``cast``, ``layer``, ``norm``, ``attention``,
-``mamba``, ``mlp``, ``moe``, ``unembed`` (``models/lm.py``) and
+``mamba``, ``mlp``, ``moe``, ``unembed`` (``models/lm.py``), ``scan``
+inside ``mamba`` (the scan kernel's launch, ``models/mamba.py``),
+``route`` and ``experts`` inside ``moe`` (``models/moe.py``) and
 ``forward``, ``loss``, ``backward``, ``optimizer`` (``launch/steps.py``).
 """
 

@@ -475,6 +475,89 @@ def test_ring_kernel_every_lane_count_matches_plain(card, lanes):
                 lanes, SS.padded_states(n)) == SS.ring_smem_bytes(lanes, n))
 
 
+def _scan_digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the SHA-256 of a float32 tensor's bytes."""
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+# the scan kernel's outputs at ``_scan_inputs``' shapes as the source gave
+# them before it had the state-writing variant (an H100 80GB HBM3 at 700 W;
+# the ring kernel at these shapes, the plan's lanes)
+PINNED_SCAN = {(2, 33, 100, 8): "972e0eed78f37447",
+               (2, 37, 200, 16): "9eab6c94a40c9dec",
+               (1, 70, 8192, 16): "0942d56de9782714",
+               (1, 1024, 8192, 16): "f608bd20edc0781b",
+               (4, 2048, 8192, 16): "1fdbd1aa2d1017f6",
+               (1, 16384, 8192, 16): "a8e66d39a4e65219"}
+
+
+@pytest.mark.parametrize("shape", sorted(PINNED_SCAN))
+def test_scan_kernel_keeps_its_bits(card, shape):
+    ins = _scan_inputs(card, *shape)
+    assert _scan_digest(SS.selective_scan(*ins)) == PINNED_SCAN[shape]
+
+
+@pytest.mark.parametrize("B,S,D,N", [
+    (1, 16384, 8192, 16),           # jamba2-mini's prefill, every layer
+    (2, 37, 200, 16), (2, 33, 100, 5), (3, 1, 128, 16), (1, 70, 8192, 1),
+])
+def test_state_scan_matches_plain(card, B, S, D, N):
+    """``selective_scan_state`` on the ``ring_state`` kernel from a state
+    h0: y and h_S within the scan's tolerance of the plain version, two
+    calls bit-equal, and from h0 = 0 the stateless kernel's y bit for
+    bit."""
+    ins = _scan_inputs(card, B, S, D, N)
+    rng = np.random.default_rng(B + S + D + N)
+    h0 = torch.from_numpy(rng.normal(size=(B, D, N)).astype(np.float32)
+                          ).to(card)
+    before = dict(SS.VARIANT_LAUNCHES)
+    y, h = SS.selective_scan_state(*ins, h0)
+    y2, h2 = SS.selective_scan_state(*ins, h0)
+    torch.cuda.synchronize()
+    assert {v: SS.VARIANT_LAUNCHES[v] - before[v] for v in SS.VARIANTS} == {
+        v: 2 * (v == "ring_state") for v in SS.VARIANTS}
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    want_y, want_h = SS.selective_scan_state_torch(*ins, h0)
+    torch.testing.assert_close(y, want_y, **SCAN_TOL)
+    torch.testing.assert_close(h, want_h, **SCAN_TOL)
+    y0, _ = SS.selective_scan_state(*ins, torch.zeros_like(h0))
+    assert torch.equal(y0, SS.selective_scan(*ins))
+
+
+def test_prefill_through_the_cache_takes_the_state_scan(card):
+    """jamba2-mini's smoke config on the card (float32, 2 of 4 experts
+    held): a prefill into the cache launches the ``ring_state`` scan once
+    a Mamba layer and no chunked scan; prefill then decode agree with the
+    chunked route's."""
+    from repro_torch.models import mamba
+    cfg = get_smoke_config("jamba2-mini")
+    cfg = replace(cfg, moe=replace(cfg.moe, held_experts=(0, 1)))
+    params = port_lm.init_params(cfg, torch.Generator(device=card)
+                                 .manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 40))).to(card)
+    outs = {}
+    for impl in ("chunked_scan", "pallas"):
+        run = replace(cfg, ssm_impl=impl)
+        SS.reset_counts()
+        mamba.CHUNKED_SCAN_CALLS = 0
+        cache = port_lm.init_cache(run, 2, 48, card)
+        lg, cache = port_lm.prefill(params, run, toks[:, :32], cache)
+        steps = [lg[:, -1]]
+        for t in range(32, 40):
+            lg, cache = port_lm.decode_step(params, run, toks[:, t:t + 1],
+                                            cache)
+            steps.append(lg[:, 0])
+        outs[impl] = torch.stack(steps)
+        n = cfg.layer_kinds().count("mamba")
+        assert SS.VARIANT_LAUNCHES["ring_state"] == (impl == "pallas") * n
+        assert mamba.CHUNKED_SCAN_CALLS == (impl == "chunked_scan") * n
+    torch.testing.assert_close(outs["pallas"], outs["chunked_scan"],
+                               atol=3e-4, rtol=1e-3)
+
+
 def test_flash_attention_unaligned_bf16_matches_plain(card):
     """bf16 tensors that are contiguous but not 16-byte aligned (a storage
     offset of one element) take the CUDA-core kernel; same function."""

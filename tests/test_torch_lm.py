@@ -17,7 +17,7 @@ own test below, and at the configs' capacity the port is held to an
 explicit per-token dispatch instead.
 """
 
-from dataclasses import replace
+from dataclasses import asdict, replace
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +32,7 @@ from repro.models import layers as ref_layers
 from repro.models import mamba as ref_mamba
 from repro.models import moe as ref_moe
 from repro.models.config import MoEConfig, SSMConfig
+from repro_torch.models import config as port_config
 from repro_torch.configs import get_smoke_config as port_smoke
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.kernels import flash_attention as FA
@@ -224,8 +225,15 @@ def test_attention_block_matches_reference(arch, prefill, max_len):
 # ---------------------------------------------------------------------------
 
 
+def _port_cfg(cfg):
+    """The port's copy of a reference sub-config (its options the
+    reference lacks at their defaults)."""
+    return getattr(port_config, type(cfg).__name__)(**asdict(cfg))
+
+
 def test_mamba_block_branches_match_reference():
     cfg = SSMConfig(d_state=4, d_conv=4, expand=2, chunk=8)
+    pcfg = _port_cfg(cfg)
     d, b, s = 8, 2, 21                   # ragged: 21 = 2 chunks of 8 + 5
     params = ref_mamba.init_mamba(jax.random.key(0), cfg, d, jnp.float32)
     pp = _tree_t(params)
@@ -236,29 +244,30 @@ def test_mamba_block_branches_match_reference():
     ref, _ = REF_MAMBA(params, jnp.asarray(xs), cfg)
     for impl in ("chunked_scan", "pallas"):
         SS.reset_counts()
-        port, none = port_mamba.mamba_block(pp, _t(xs), cfg, impl=impl)
+        port, none = port_mamba.mamba_block(pp, _t(xs), pcfg, impl=impl)
         assert none is None
         assert SS.PLAIN_CALLS["selective_scan"] == (impl == "pallas")
         _close(port, ref)
     ref_k, _ = REF_MAMBA(params, jnp.asarray(xs), cfg,
                                      impl="pallas_interpret")
     _close(port, ref_k)
-    # prefill with a cache (chunked scan even for impl="pallas"), then
-    # three decode steps
+    # prefill with a cache (the reference's chunked scan; the port's
+    # kernel route, its plain version here, which starts from the cached
+    # state and returns the last), then three decode steps
     rc = ref_mamba.init_mamba_cache(cfg, d, b, jnp.float32)
-    pc = port_mamba.init_mamba_cache(cfg, d, b, torch.float32, "cpu")
+    pc = port_mamba.init_mamba_cache(pcfg, d, b, torch.float32, "cpu")
     ref, rc = REF_MAMBA(params, jnp.asarray(xs), cfg, cache=rc)
     SS.reset_counts()
-    port, pc = port_mamba.mamba_block(pp, _t(xs), cfg, cache=pc,
+    port, pc = port_mamba.mamba_block(pp, _t(xs), pcfg, cache=pc,
                                       impl="pallas")
-    assert SS.PLAIN_CALLS["selective_scan"] == 0
+    assert SS.PLAIN_CALLS["selective_scan"] == 1
     _close(port, ref)
     _close(pc["h"], rc["h"])
     _close(pc["conv"], rc["conv"])
     for i in range(s, s + 3):
         ref, rc = REF_MAMBA(params, jnp.asarray(x[:, i:i + 1]),
                                         cfg, cache=rc)
-        port, pc = port_mamba.mamba_block(pp, _t(x[:, i:i + 1]), cfg,
+        port, pc = port_mamba.mamba_block(pp, _t(x[:, i:i + 1]), pcfg,
                                           cache=pc)
         _close(port, ref)
         _close(pc["h"], rc["h"])
@@ -313,8 +322,8 @@ def test_moe_block_matches_reference_at_ample_capacity():
     """Two groups of 32 tokens, a shared expert beside the routed ones."""
     cfg, params, x = _moe_case(7, n_shared=1)
     ref, ref_aux = REF_MOE(params, jnp.asarray(x), cfg, group=32)
-    port, port_aux = port_moe.moe_block(_tree_t(params), _t(x), cfg,
-                                        group=32)
+    port, port_aux = port_moe.moe_block(_tree_t(params), _t(x),
+                                        _port_cfg(cfg), group=32)
     _close(port, ref)
     _close(port_aux, ref_aux)
     # top-k ids and their order: torch.topk(sorted=True) as jax.lax.top_k
@@ -330,7 +339,7 @@ def test_moe_block_matches_explicit_dispatch_when_dropping(capacity_factor):
     want, _, kept = _explicit_dispatch(params, x, cfg)
     if capacity_factor < 1:
         assert not kept.all()          # tokens really are dropped
-    port, _ = port_moe.moe_block(_tree_t(params), _t(x), cfg)
+    port, _ = port_moe.moe_block(_tree_t(params), _t(x), _port_cfg(cfg))
     _close(port, want)
 
 
@@ -345,7 +354,8 @@ def test_reference_moe_misroutes_expert0_slot0_when_dropping():
     first_e0 = int(np.flatnonzero(ids[:, 0] == 0)[0])
     assert first_e0 != 0 and not kept[:, 0].all()   # the fault's conditions
     ref = np.asarray(REF_MOE(params, jnp.asarray(x), cfg)[0])[0]
-    port = port_moe.moe_block(_tree_t(params), _t(x), cfg)[0].numpy()[0]
+    port = port_moe.moe_block(_tree_t(params), _t(x),
+                              _port_cfg(cfg))[0].numpy()[0]
     _close(port, want[0])
     others = np.arange(x.shape[1]) != first_e0
     _close(ref[others], want[0][others])

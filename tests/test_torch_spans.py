@@ -21,7 +21,8 @@ from repro_torch.runtime import spans
 
 PORT = "repro_torch."
 B, S = 8, 16                     # B divides jamba's 8 microbatches
-ARCHS = ("olmo-1b", "phi3-vision-4b", "jamba-v0.1-52b", "falcon-mamba-7b")
+ARCHS = ("olmo-1b", "phi3-vision-4b", "jamba-v0.1-52b", "falcon-mamba-7b",
+         "jamba2-mini")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -37,6 +38,9 @@ def _config(arch):
     cfg = get_smoke_config(arch)
     if cfg.moe is not None:
         cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=8.0))
+    if arch == "jamba2-mini":     # the scan's kernel route (its plain
+        cfg = replace(cfg, ssm_impl="pallas")   # version here), held experts
+        cfg = replace(cfg, moe=replace(cfg.moe, held_experts=(0, 1)))
     return cfg
 
 
@@ -118,10 +122,13 @@ def _per_pass(cfg):
     kinds, moes = cfg.layer_kinds(), cfg.moe_layers()
     n_ffn = sum(m or cfg.d_ff > 0 for m in moes)
     n_moe = sum(moes)
+    scans = cfg.ssm_impl in ("pallas", "pallas_interpret")
     return {"layer": cfg.n_layers,
             "norm": cfg.n_layers + n_ffn,
             "attention": kinds.count("attn"), "mamba": kinds.count("mamba"),
-            "mlp": n_ffn - n_moe, "moe": n_moe}
+            "scan": kinds.count("mamba") if scans else 0,
+            "mlp": n_ffn - n_moe, "moe": n_moe, "route": n_moe,
+            "experts": n_moe}
 
 
 def _prefill_counts(cfg):
@@ -179,7 +186,8 @@ def test_parts_of_a_layer_lie_inside_a_layer(arch, traced):
              else _step_spans(arch, True))
     layers = [s for s in found if s[0] == "layer"]
     parts = [s for s in found if s[0] in
-             ("attention", "mamba", "mlp", "moe", "norm")]
+             ("attention", "mamba", "mlp", "moe", "norm", "scan", "route",
+              "experts")]
     final = 1 if traced == "prefill" else _config(arch).train_microbatches
     inside = [s for s in parts
               if any(l[1] <= s[1] and s[2] <= l[2] for l in layers)]
@@ -290,3 +298,27 @@ def test_the_smokes_kernel_table_leaves_out_the_port_spans(annotated):
                        "Memcpy DtoD (Device -> Device)": 50.0}
     assert found == {"repro_torch.layer": [2, 900.0, 650.0],
                      "repro_torch.attention": [2, 400.0, 350.0]}
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "jamba2-mini"])
+def test_scan_route_and_experts_lie_inside_their_blocks(arch):
+    """``scan`` inside ``mamba`` (the kernel route only), ``route`` and
+    ``experts`` inside ``moe``, once each per block."""
+    found = _prefill_spans(arch)
+    for part, block in (("scan", "mamba"), ("route", "moe"),
+                        ("experts", "moe")):
+        parts = [s for s in found if s[0] == part]
+        blocks = [s for s in found if s[0] == block]
+        assert all(sum(b[1] <= s[1] and s[2] <= b[2] for b in blocks) == 1
+                   for s in parts)
+        assert len(parts) == (len(blocks) if part != "scan" or
+                              _config(arch).ssm_impl == "pallas" else 0)
+
+
+def test_no_span_name_holds_what_the_benchmark_matches():
+    """The benchmark's readers match "copy" and "flash_attention" in
+    device ops' names: no port span may hold either."""
+    names = {s[0] for arch in ARCHS for s in _prefill_spans(arch)}
+    names |= {s[0] for arch in ARCHS for s in _step_spans(arch, True)}
+    assert {"scan", "route", "experts"} <= names
+    assert not [n for n in names if "copy" in n or "flash_attention" in n]
